@@ -1,0 +1,15 @@
+"""Yi-9B [arXiv:2403.04652] — llama-architecture dense with GQA kv=4."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-9b",
+    family="dense",
+    n_layers=48,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=4,
+    d_ff=11008,
+    vocab_size=64000,
+    source="arXiv:2403.04652",
+    tie_embeddings=False,
+)

@@ -1,0 +1,30 @@
+"""repro_torch.kernels — hand-written Hopper kernels and their launch counts.
+
+Each kernel package is <name>/{ops,ref}.py plus csrc/: the wrapper
+that dispatches on the tensor's device (the plain version for a CPU
+tensor, the kernel for a CUDA tensor), the plain PyTorch version, and
+the CUDA source.  ``build.py`` compiles the sources with nvcc at first
+use.
+
+``LAUNCHES`` holds one plain integer per kernel.  A wrapper adds one to
+its kernel's count where it launches the kernel, and nowhere else, so a
+run can show that its path went through the kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0}
+
+
+def record_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)

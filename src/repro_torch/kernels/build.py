@@ -1,0 +1,75 @@
+"""Build CUDA sources into a shared library with a plain C interface.
+
+nvcc compiles each library for ``sm_90a`` (Hopper) at first use, into
+``build/repro_torch/`` at the repository root, named by a hash of its
+sources and flags so that an edited source is rebuilt.  The library is
+loaded with ``ctypes``; nothing here includes PyTorch's headers, which
+keeps a build to seconds.  Nothing is built when a module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclass
+class Library:
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float                      # build (or load) time
+    built: bool                         # False: found in the build dir
+    ptxas: List[str] = field(default_factory=list)  # register/spill lines
+
+
+_LOADED: Dict[str, Library] = {}
+
+
+def nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def build_library(name: str, sources: Sequence[Path]) -> Library:
+    """Compile ``sources`` into lib<name>-<hash>.so once per process."""
+    if name in _LOADED:
+        return _LOADED[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    log = out.with_suffix(".log")
+    t0 = time.perf_counter()
+    built = not out.exists()
+    if built:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        log.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    ptxas = [line.strip() for line in
+             (log.read_text().splitlines() if log.exists() else [])
+             if "entry function" in line or "registers" in line
+             or "spill" in line]
+    _LOADED[name] = Library(lib, out, time.perf_counter() - t0, built, ptxas)
+    return _LOADED[name]

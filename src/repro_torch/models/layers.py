@@ -1,0 +1,268 @@
+"""Core layers of the dense decoder: RMSNorm, RoPE, softcap, the gated
+MLP, and GQA attention with its full-sequence and paged-decode modes.
+
+A port of ``repro.models.layers`` for the archs the serving slice
+covers (dense GQA, sliding window, softcaps, QK-norm).  Parameters of
+one block arrive as a flat dict keyed by the leaf name under the block
+("wq", "scale", ...).  Numerics follow the JAX package: fp32 norms,
+RoPE and softmax, matmuls in the compute dtype; each function says
+where the port's PyTorch idiom differs.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.models.param import ParamDef
+
+NEG_INF = -2.0e38  # large-negative for masking (fp32-safe)
+
+NOT_PORTED = "is not ported yet (ROADMAP.md Queue A)"
+
+
+# ---------------------------------------------------------------------------
+# norms, RoPE, softcap
+# ---------------------------------------------------------------------------
+
+def rmsnorm_defs(dim: int):
+    return {"scale": ParamDef((dim,), ("norm",), "ones")}
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, llama split-half convention, in fp32.
+
+    x: (B, S, n_heads_or_1, hd) ; pos: (B, S) absolute positions."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = pos[..., None, None].float() * freqs             # (B,S,1,half)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def mlp_defs(cfg: ModelConfig, d_ff: int):
+    d = cfg.d_model
+    return {"wg": ParamDef((d, d_ff), ("embed", "ffn")),
+            "wu": ParamDef((d, d_ff), ("embed", "ffn")),
+            "wd": ParamDef((d_ff, d), ("ffn", "embed"))}
+
+
+def _act(cfg: ModelConfig, x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh") if cfg.act == "gelu" else F.silu(x)
+
+
+def mlp(p, x, cfg: ModelConfig):
+    cdt = getattr(torch, cfg.compute_dtype)
+    xc = x.to(cdt)
+    h = _act(cfg, xc @ p["wg"].to(cdt)) * (xc @ p["wu"].to(cdt))
+    return h @ p["wd"].to(cdt)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+def attention_defs(cfg: ModelConfig):
+    d, H, K = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    defs = {
+        "wq": ParamDef((d, H, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamDef((d, K, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamDef((d, K, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamDef((H, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qk_norm:
+        defs["qn"] = ParamDef((hd,), ("norm",), "ones")
+        defs["kn"] = ParamDef((hd,), ("norm",), "ones")
+    return defs
+
+
+def _qk_rms(x, scale, eps):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def _proj_in(x, w):
+    """einsum("bsd,dkh->bskh") as one matmul over the flattened heads."""
+    d, n, hd = w.shape
+    return (x @ w.reshape(d, n * hd)).unflatten(-1, (n, hd))
+
+
+def _proj_out(o, w):
+    """einsum("bshd,hdo->bso") as one matmul over the flattened heads."""
+    n, hd, d = w.shape
+    return o.flatten(-2) @ w.reshape(n * hd, d)
+
+
+def ring_cache(entries, S: int, window: int):
+    """Full-sequence cache entries {name: (B,S,...)} plus their implicit
+    positions arange(S).  Only the unrotated case is ported (S <= window
+    or no window), which is all that paged serving keeps."""
+    if window > 0 and S > window:
+        raise NotImplementedError(f"ring-buffer rotation (S={S} > window="
+                                  f"{window}) {NOT_PORTED}")
+    B = next(iter(entries.values())).shape[0]
+    dev = next(iter(entries.values())).device
+    sp = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    return {**entries, "slot_pos": sp}
+
+
+def _chunk_mask(q0: int, Qc: int, T: int, causal: bool, window: int, device):
+    """(Qc,T) additive mask for the q-rows [q0, q0+Qc)."""
+    i = q0 + torch.arange(Qc, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    ok = torch.ones((Qc, T), dtype=torch.bool, device=device)
+    if causal:
+        ok &= j <= i
+    if window > 0:
+        ok &= j > i - window
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def _sdpa(q, k, v, mask, cap, scale):
+    """q: (B,S,H,hd)  k,v: (B,T,K,hd), K | H.  mask: broadcast (B,H,S,T).
+
+    Scores and softmax in fp32; the probabilities are cast to v's dtype
+    for the PV product, as in the JAX package.  GQA groups the G = H/K
+    query heads of a kv head in a broadcast matmul instead of repeating
+    K/V (same head mapping: head h reads kv head h // G)."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qf = (q.float() * scale).reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 3, 1)[:, :, None]           # (B,K,1,hd,T)
+    s = (qf @ kf).reshape(B, H, S, T)
+    s = softcap(s, cap) + mask
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = p.reshape(B, K, G, S, T) @ v.permute(0, 2, 1, 3)[:, :, None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, v.shape[-1])
+
+
+Q_CHUNK = 1024
+
+
+def _sdpa_seq(q, k, v, causal: bool, window: int, cap, scale):
+    """Full-sequence attention, chunked over the query dim so scores
+    exist only per (Q_CHUNK, T) block.  Plain torch matmuls: the JAX
+    package has no Pallas kernel here either."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    masked = causal or window
+
+    def mask(q0, Qc):
+        return (_chunk_mask(q0, Qc, T, causal, window, q.device) if masked
+                else torch.zeros((), dtype=torch.float32, device=q.device))
+
+    if S <= Q_CHUNK or S % Q_CHUNK != 0:
+        return _sdpa(q, k, v, mask(0, S), cap, scale)
+    return torch.cat([_sdpa(q[:, c:c + Q_CHUNK], k, v, mask(c, Q_CHUNK),
+                            cap, scale)
+                      for c in range(0, S, Q_CHUNK)], dim=1)
+
+
+def _paged_write(pool, new, bt, pos):
+    """Write this step's entry into the block pool through the table:
+    pool (nb, bs, *tail) <- new (B, 1, *tail) at absolute position
+    pos (B,).  In place (``index_put_``), where the JAX package returns
+    a functional copy (``pool.at[bid, off].set``).  Active slots always
+    target a private (refcount-1) block; inactive slots target the
+    reserved scratch block 0."""
+    bs = pool.shape[1]
+    B = bt.shape[0]
+    rows = torch.arange(B, device=bt.device)
+    bid = bt[rows, (pos // bs).long()].long()
+    off = (pos % bs).long()
+    pool.index_put_((bid, off), new[:, 0].to(pool.dtype))
+
+
+def _paged_gather(pool, bt):
+    """Dense (B, nbmax*bs, *tail) view of a slot's entries gathered
+    through its block table.  Positions t <= pos hold real entries in
+    position order; everything else is garbage that the caller masks."""
+    B, nbmax = bt.shape
+    bs = pool.shape[1]
+    return pool[bt.long()].reshape((B, nbmax * bs) + tuple(pool.shape[2:]))
+
+
+def _paged_valid(pos, T: int, window: int):
+    """(B, T) validity mask for gathered entries: written and causal
+    (t <= pos), inside the sliding window when one applies."""
+    t_ids = torch.arange(T, dtype=torch.int32, device=pos.device)[None, :]
+    valid = t_ids <= pos[:, None]
+    if window > 0:
+        valid &= t_ids > pos[:, None] - window
+    return valid
+
+
+def gqa_attention(p, x, cfg: ModelConfig, *, local: bool, pos, cache=None,
+                  causal: bool = True, paged_kernel: bool = True):
+    """Modes:
+      * full-seq (prefill): cache=None, pos (B,S) absolute positions;
+        returns the unrotated cache {"k", "v", "slot_pos"}.
+      * paged decode: cache={"kp","vp","bt"}, x (B,1,d), pos (B,); the
+        pools are written in place and the same dict is returned.
+    Returns (out, cache)."""
+    if cfg.sdpa_bf16:
+        raise NotImplementedError(f"sdpa_bf16 {NOT_PORTED}")
+    cdt = getattr(torch, cfg.compute_dtype)
+    hd = cfg.resolved_head_dim
+    xc = x.to(cdt)
+    window = cfg.window if local else 0
+
+    q = _proj_in(xc, p["wq"].to(cdt))
+    k = _proj_in(xc, p["wk"].to(cdt))
+    v = _proj_in(xc, p["wv"].to(cdt))
+    if cfg.qk_norm:
+        q = _qk_rms(q, p["qn"], cfg.norm_eps)
+        k = _qk_rms(k, p["kn"], cfg.norm_eps)
+    pos2 = pos if pos.dim() == 2 else pos[:, None]
+    q = rope(q, pos2, cfg.rope_theta)
+    k = rope(k, pos2, cfg.rope_theta)
+    scale = hd ** -0.5
+
+    if cache is None:                                   # full sequence
+        o = _sdpa_seq(q, k, v, causal, window, cfg.attn_softcap, scale)
+        new_cache = (ring_cache({"k": k, "v": v}, x.shape[1], window)
+                     if causal else None)
+        return _proj_out(o, p["wo"].to(cdt)), new_cache
+
+    if "kp" not in cache:
+        raise NotImplementedError(f"dense ring-cache decode {NOT_PORTED}")
+    # ---- paged decode (x is (B,1,d)) ----
+    kp, vp, bt = cache["kp"], cache["vp"], cache["bt"]
+    _paged_write(kp, k, bt, pos)
+    _paged_write(vp, v, bt, pos)
+    if paged_kernel:
+        o = paged_attention(q[:, 0].contiguous(), kp, vp, bt, pos,
+                            window=window, softcap=cfg.attn_softcap)[:, None]
+    else:
+        kd = _paged_gather(kp, bt)
+        vd = _paged_gather(vp, bt)
+        valid = _paged_valid(pos, kd.shape[1], window)
+        mask = torch.where(valid, 0.0, NEG_INF).float()[:, None, None, :]
+        o = _sdpa(q, kd.to(cdt), vd.to(cdt), mask, cfg.attn_softcap, scale)
+    return _proj_out(o.to(cdt), p["wo"].to(cdt)), cache

@@ -1,0 +1,91 @@
+"""Parameter abstraction: models declare abstract trees of ``ParamDef``
+(shape + logical axis names + init), as in ``repro.models.param``.
+
+The port's parameters are a flat ``{dotted.path: Tensor}`` dict
+("blocks.L0.attn.wq"); stacked period dims stay leading, as in the JAX
+tree.  ``materialize`` draws from a ``torch.Generator``: the shapes,
+scales and init kinds are those of the JAX ``materialize``, but the
+numbers differ from its ``jax.random`` draws.  Parity tests carry the
+JAX package's own parameters across with ``repro_torch.convert``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+
+class ParamDef(NamedTuple):
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]   # logical axis name per dim
+    init: str = "normal"              # normal | zeros | ones | embed | const
+    scale: float = -1.0               # -1 -> 1/sqrt(fan_in) for "normal"
+    dtype: torch.dtype = torch.float32
+
+
+def flatten_defs(tree, prefix: str = "") -> Dict[str, Any]:
+    """Nested dict of leaves -> ``{dotted.path: leaf}`` in insertion order."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten_defs(v, path + "."))
+        else:
+            out[path] = v
+    return out
+
+
+def map_defs(f, tree):
+    return {k: map_defs(f, v) if isinstance(v, dict) else f(v)
+            for k, v in tree.items()}
+
+
+def stack(tree, n: int, axis_name: str = "layers"):
+    """Add a leading stacked-layer dim of size n to every ParamDef."""
+    return map_defs(lambda d: d._replace(shape=(n,) + d.shape,
+                                         axes=(axis_name,) + d.axes), tree)
+
+
+def _fan_in(d: ParamDef) -> float:
+    """Fan-in from the logical-axis layout (as ``repro.models.param``):
+    2D mats are (in, out); 3D projections back to the residual stream
+    (last axis "embed") contract everything before it; other 3D
+    projections contract their first dim."""
+    if len(d.shape) < 2:
+        return float(d.shape[-1])
+    if len(d.shape) == 2:
+        return float(d.shape[0])
+    if d.axes and d.axes[-1] == "embed":
+        return float(math.prod(d.shape[:-1]))
+    return float(d.shape[0])
+
+
+def materialize(tree, generator: torch.Generator,
+                device: torch.device) -> Dict[str, torch.Tensor]:
+    """Initialize every leaf, in dotted-path order, from ``generator``
+    (which must live on ``device``).  The fan-in is read from the leaf's
+    stacked shape, exactly as the JAX ``materialize`` reads it, so the
+    scales agree with the reference's."""
+    out = {}
+    for path, d in flatten_defs(tree).items():
+        if d.init == "zeros":
+            t = torch.zeros(d.shape, dtype=d.dtype, device=device)
+        elif d.init == "ones":
+            t = torch.ones(d.shape, dtype=d.dtype, device=device)
+        elif d.init == "const":
+            t = torch.full(d.shape, d.scale, dtype=d.dtype, device=device)
+        else:
+            if d.init == "arange_log":
+                raise NotImplementedError("Mamba init: ROADMAP.md Queue A, "
+                                          "'Rest of the arch zoo'")
+            scale = d.scale if d.scale >= 0 else 1.0 / math.sqrt(_fan_in(d))
+            t = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                            device=device).mul_(scale).to(d.dtype)
+        out[path] = t
+    return out
+
+
+def count(tree) -> int:
+    return sum(math.prod(d.shape) for d in flatten_defs(tree).values())
+

@@ -1,0 +1,49 @@
+"""Runtime: the device context threaded through model apply functions.
+
+The JAX package's ``Runtime`` carries a mesh; the port runs on one
+device and carries that device instead, plus the choice of paged
+decode attention.  Entry points run on CUDA unless the caller asks for
+the CPU: ``resolve_device`` raises when CUDA is asked for (the default)
+and no card is present, and never falls back to the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Union
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Runtime:
+    device: torch.device
+    # paged decode attention through ``kernels.paged_attention.ops`` (the
+    # CUDA kernel on a CUDA tensor, its plain version on a CPU tensor);
+    # False runs the plain gather path of ``layers.gqa_attention``, the
+    # mirror of the JAX package's CPU path, which the chip smoke run
+    # compares the kernel path against
+    paged_kernel: bool = True
+
+
+def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
+    """``None`` means CUDA.  On CUDA, fp32 matmuls are kept in full fp32
+    (no TF32) and bf16 matmuls accumulate in fp32, as the JAX package's
+    fp32 logits and ``preferred_element_type`` math assume."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                               "(--device cpu) to run on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def make_runtime(device: Union[str, torch.device, None] = None) -> Runtime:
+    return Runtime(device=resolve_device(device))
+
+
+CPU_RUNTIME = Runtime(device=torch.device("cpu"))

@@ -1,0 +1,168 @@
+"""Model assembly for the dense decoder stacks, built from the layers.
+
+A port of ``repro.models.transformer`` for serving: ``model_defs``,
+``block_apply`` (attention plus dense FFN) and ``forward`` in
+``prefill`` and ``decode`` modes.  The JAX package scans the stacked
+layer period with ``lax.scan``; here a Python loop walks the stacked
+leading dim.  MoE, MLA, SSM and encoder-decoder stacks, and the train
+mode, are not ported yet and raise ``NotImplementedError``.
+
+Parameters are the flat ``{dotted.path: Tensor}`` dict of
+``models.param`` ("blocks.L0.attn.wq" has shape (n_periods, d, H, hd)).
+Caches are flat dicts too: prefill returns the dense
+"blocks.L{i}.attn.{k,v,slot_pos}" stacked over periods, and paged
+decode takes and returns "blocks.L{i}.attn.{kp,vp,bt}"
+(``serving.paged_cache``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig, layer_pattern
+from repro_torch.models import layers
+from repro_torch.models.param import ParamDef, map_defs, stack
+from repro_torch.models.runtime import Runtime
+
+MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    for what, present in (("MoE", cfg.moe is not None),
+                          ("MLA", cfg.mla is not None),
+                          ("SSM", cfg.ssm is not None),
+                          ("encoder-decoder", cfg.is_encoder_decoder)):
+        if present:
+            raise NotImplementedError(
+                f"{cfg.name}: {what} is not ported yet (ROADMAP.md Queue A, "
+                f"'Rest of the arch zoo')")
+
+
+# ---------------------------------------------------------------------------
+# parameter trees
+# ---------------------------------------------------------------------------
+
+def block_defs(cfg: ModelConfig, spec: LayerSpec):
+    return {"attn_norm": layers.rmsnorm_defs(cfg.d_model),
+            "attn": layers.attention_defs(cfg),
+            "ffn_norm": layers.rmsnorm_defs(cfg.d_model),
+            "ffn": layers.mlp_defs(cfg, cfg.d_ff)}
+
+
+def model_defs(cfg: ModelConfig):
+    check_supported(cfg)
+    _, period, n_periods = layer_pattern(cfg)
+    defs = {
+        "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab_table", "embed"),
+                          "embed", scale=0.02),
+        "final_norm": layers.rmsnorm_defs(cfg.d_model),
+        "blocks": stack({f"L{i}": block_defs(cfg, s)
+                         for i, s in enumerate(period)}, n_periods),
+    }
+    if not cfg.tie_embeddings:
+        defs["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size),
+                                   ("embed", "vocab"), scale=0.02)
+    if cfg.param_dtype != "float32":
+        dt = getattr(torch, cfg.param_dtype)
+        defs = map_defs(lambda d: d._replace(dtype=dt), defs)
+    return defs
+
+
+def cast_for_compute(params: Dict[str, torch.Tensor],
+                     cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """A params dict whose matmul weights are cast once to the compute
+    dtype.  The JAX package casts them at every use
+    (``p["wq"].astype(cdt)``); casting once gives the same bits without
+    re-reading the fp32 weights on every decode step.  Norm scales and
+    the embedding stay as stored: the logits are an fp32 product with
+    the embedding, and the token gather casts after the lookup."""
+    cdt = getattr(torch, cfg.compute_dtype)
+    return {k: v.to(cdt) if k.rsplit(".", 1)[-1] in MATMUL_LEAVES else v
+            for k, v in params.items()}
+
+
+def unembed_matrix(params):
+    u = params.get("unembed")
+    return u if u is not None else params["embed"].T
+
+
+def _sub(p: Dict[str, torch.Tensor], name: str) -> Dict[str, torch.Tensor]:
+    pre = name + "."
+    return {k[len(pre):]: v for k, v in p.items() if k.startswith(pre)}
+
+
+# ---------------------------------------------------------------------------
+# one block
+# ---------------------------------------------------------------------------
+
+def block_apply(p, spec: LayerSpec, h, cfg: ModelConfig, rt: Runtime, *,
+                pos, cache=None):
+    """Returns (h, cache): the dense prefill cache of this layer, or the
+    paged cache dict it was given (updated in place)."""
+    xin = layers.rmsnorm(p["attn_norm.scale"], h, cfg.norm_eps)
+    a, c = layers.gqa_attention(_sub(p, "attn"), xin, cfg,
+                                local=(spec.mixer == "attn_local"), pos=pos,
+                                cache=cache, paged_kernel=rt.paged_kernel)
+    h = h + a.to(h.dtype)
+    xin = layers.rmsnorm(p["ffn_norm.scale"], h, cfg.norm_eps)
+    h = h + layers.mlp(_sub(p, "ffn"), xin, cfg).to(h.dtype)
+    return h, c
+
+
+# ---------------------------------------------------------------------------
+# full forward
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg: ModelConfig, rt: Runtime, tokens, *,
+            mode: str, cache=None, pos=None, last_pos=None):
+    """mode: "prefill" | "decode".
+
+    prefill: tokens (B,S)            -> (logits (B,1,V), dense cache)
+    decode:  tokens (B,1), pos (B,)  -> (logits (B,1,V), paged cache)
+
+    ``last_pos`` (B,), prefill only: per-row position whose logits to
+    return instead of the last one (bucket-padded batched prefill).
+    """
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"forward mode {mode!r} is not ported yet "
+                                  f"(ROADMAP.md Queue A)")
+    check_supported(cfg)
+    _, period, n_periods = layer_pattern(cfg)
+    B, S = tokens.shape
+    cdt = getattr(torch, cfg.compute_dtype)
+
+    h = params["embed"][tokens.long()].to(cdt)
+    if cfg.embed_scale:
+        # rounded to the compute dtype before the multiply, as in JAX
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cdt, device=h.device)
+
+    if mode == "decode":
+        rope_pos = pos
+    else:
+        rope_pos = torch.arange(S, dtype=torch.int32,
+                                device=tokens.device).expand(B, S)
+
+    per_layer: Dict[str, list] = {}
+    for i in range(n_periods):
+        for j, spec in enumerate(period):
+            pre = f"blocks.L{j}."
+            p = {k[len(pre):]: v[i] for k, v in params.items()
+                 if k.startswith(pre)}
+            c_in: Optional[dict] = None
+            if mode == "decode":
+                c_in = {n: cache[f"{pre}attn.{n}"][i] for n in ("kp", "vp", "bt")}
+            h, c = block_apply(p, spec, h, cfg, rt, pos=rope_pos, cache=c_in)
+            if mode == "prefill":
+                for n, t in c.items():
+                    per_layer.setdefault(f"{pre}attn.{n}", []).append(t)
+
+    new_cache = cache if mode == "decode" else \
+        {k: torch.stack(v) for k, v in per_layer.items()}
+    h = layers.rmsnorm(params["final_norm.scale"], h, cfg.norm_eps)
+    if mode == "prefill":
+        h = (h[:, -1:, :] if last_pos is None
+             else h[torch.arange(B, device=h.device), last_pos.long()][:, None])
+    logits = h.float() @ unembed_matrix(params).float()
+    logits = layers.softcap(logits, cfg.final_softcap)
+    return logits, new_cache

@@ -1,0 +1,224 @@
+"""Paged KV cache: a global block pool + per-sequence block tables.
+
+A port of ``repro.serving.paged_cache`` for the dense GQA stacks.  Each
+attention layer's cache is a pool of fixed-size blocks plus an int32
+block table per slot, kept in a flat dict stacked over periods:
+
+    "blocks.L{i}.attn.kp" / ".vp"   (n_periods, n_blocks, bs, K, hd)
+    "blocks.L{i}.attn.bt"           (n_periods, n_slots, nbmax) int32
+
+Token position t of slot b lives at ``pool[bt[b, t // bs], t % bs]``.
+Block 0 is a reserved scratch block: inactive slots point their whole
+table at it, so lockstep decode writes land somewhere harmless.
+
+``BlockAllocator`` is a copy of the JAX package's host-side free-list
+allocator with refcounted copy-on-write prefix sharing at full-block
+granularity (the port does not import the JAX package).  Pool shapes
+come from ``cfg`` directly.  The pools and tables are updated in place
+(``index_put_`` / slice assignment) where the JAX package builds
+functional copies.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, layer_pattern
+from repro_torch.models.transformer import check_supported
+
+POOL_LEAVES = {"kp": "k", "vp": "v"}      # pool leaf -> dense prefill leaf
+
+
+def n_blocks_for(n_tokens: int, block_size: int) -> int:
+    """Blocks needed to hold ``n_tokens`` positions."""
+    return -(-n_tokens // block_size)
+
+
+class PoolExhausted(RuntimeError):
+    """The free list is empty; the scheduler preempts and retries."""
+
+
+class BlockAllocator:
+    """Host-side free-list allocator over ``n_blocks`` KV blocks with
+    refcounted full-block prefix sharing (see module docstring)."""
+
+    def __init__(self, n_blocks: int, block_size: int):
+        if n_blocks < 2:
+            raise ValueError("need at least scratch block 0 + one real block")
+        self.n_blocks = n_blocks
+        self.block_size = block_size
+        # LIFO free list, block 0 reserved as scratch; low ids first out
+        self._free: List[int] = list(range(n_blocks - 1, 0, -1))
+        self._ref: Dict[int, int] = {}
+        self._hash2block: Dict[Any, int] = {}
+        self._block2hash: Dict[int, Any] = {}
+
+    # -- core alloc/free ---------------------------------------------------
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        return (self.n_blocks - 1) - len(self._free)
+
+    def refcount(self, bid: int) -> int:
+        return self._ref.get(bid, 0)
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise PoolExhausted(f"all {self.n_blocks - 1} blocks in use")
+        bid = self._free.pop()
+        self._ref[bid] = 1
+        return bid
+
+    def retain(self, bid: int) -> int:
+        assert self._ref.get(bid, 0) > 0, f"retain of free block {bid}"
+        self._ref[bid] += 1
+        return bid
+
+    def release(self, bid: int) -> None:
+        assert self._ref.get(bid, 0) > 0, f"release of free block {bid}"
+        self._ref[bid] -= 1
+        if self._ref[bid] == 0:
+            del self._ref[bid]
+            h = self._block2hash.pop(bid, None)
+            if h is not None:
+                del self._hash2block[h]
+            self._free.append(bid)
+
+    # -- copy-on-write prefix sharing --------------------------------------
+
+    @staticmethod
+    def prefix_key(prev_key: Any, block_tokens: Tuple[int, ...]) -> Any:
+        """Chained content key: a block's identity is (everything before
+        it, its tokens)."""
+        return (prev_key, block_tokens)
+
+    def lookup(self, key: Any) -> Optional[int]:
+        return self._hash2block.get(key)
+
+    def register(self, key: Any, bid: int) -> None:
+        """Publish a freshly written full block for reuse.  First writer
+        wins; keys/blocks already mapped are left alone."""
+        if key not in self._hash2block and bid not in self._block2hash:
+            self._hash2block[key] = bid
+            self._block2hash[bid] = key
+
+    def plan_prompt(self, tokens) -> Tuple[List[int], List[Any]]:
+        """COW admission plan for a prompt: ``(shared_block_ids,
+        full_block_keys)``.  The shared blocks (the longest registered
+        chain of the prompt's full blocks) are *retained* here; the
+        caller releases them if admission is abandoned."""
+        toks = [int(t) for t in tokens]
+        bs = self.block_size
+        keys: List[Any] = []
+        prev: Any = None
+        for i in range(len(toks) // bs):
+            prev = self.prefix_key(prev, tuple(toks[i * bs:(i + 1) * bs]))
+            keys.append(prev)
+        shared: List[int] = []
+        for key in keys:
+            bid = self.lookup(key)
+            if bid is None:
+                break
+            shared.append(self.retain(bid))
+        return shared, keys
+
+    def check(self) -> None:
+        """Invariants: conservation, scratch never handed out, free list
+        duplicate-free, hash maps consistent."""
+        assert self.used_blocks == len(self._ref)
+        assert self.used_blocks + self.n_free == self.n_blocks - 1
+        assert 0 not in self._ref and 0 not in self._free
+        assert len(set(self._free)) == len(self._free)
+        for h, b in self._hash2block.items():
+            assert self._block2hash.get(b) == h and self._ref.get(b, 0) > 0
+
+
+# ---------------------------------------------------------------------------
+# paged cache construction & manipulation
+# ---------------------------------------------------------------------------
+
+def paged_cache_init(cfg: ModelConfig, n_slots: int, block_size: int,
+                     n_blocks: int, nbmax: int,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    """Zero-initialized pools and block tables for every attention
+    layer of the period (see module docstring), in the compute dtype
+    that prefill writes."""
+    check_supported(cfg)
+    _, period, n_periods = layer_pattern(cfg)
+    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    cdt = getattr(torch, cfg.compute_dtype)
+    paged = {}
+    for j in range(len(period)):
+        pre = f"blocks.L{j}.attn."
+        for name in POOL_LEAVES:
+            paged[pre + name] = torch.zeros(
+                (n_periods, n_blocks, block_size, K, hd), dtype=cdt,
+                device=device)
+        paged[pre + "bt"] = torch.zeros((n_periods, n_slots, nbmax),
+                                        dtype=torch.int32, device=device)
+    return paged
+
+
+def set_block_table(paged, slot: int, block_ids: List[int]):
+    """Point slot ``slot``'s table row (every layer) at ``block_ids``,
+    zero-padded (scratch) to the table width."""
+    for name, leaf in paged.items():
+        if not name.endswith(".bt"):
+            continue
+        nbmax = leaf.shape[-1]
+        assert len(block_ids) <= nbmax, (len(block_ids), nbmax)
+        row = torch.tensor(list(block_ids) + [0] * (nbmax - len(block_ids)),
+                           dtype=torch.int32)
+        leaf[..., slot, :] = row.to(leaf.device)
+    return paged
+
+
+def splice_prefill(paged, dense, row: int, slot: int, block_ids: List[int],
+                   skip_blocks: int = 0):
+    """Write row ``row`` of a (group) dense prefill cache into the pool
+    blocks ``block_ids``.  The first ``skip_blocks`` blocks are
+    COW-shared (already holding this prefix) and are not written.
+    Block tables are untouched: use ``set_block_table``.  ``slot`` names
+    the per-slot state of archs that have it; the ported archs have
+    none."""
+    ids = block_ids[skip_blocks:]
+    if not ids:
+        return paged
+    for name, pool in paged.items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf not in POOL_LEAVES:
+            continue
+        src = dense[name[:-len(leaf)] + POOL_LEAVES[leaf]]   # (n_p, B, S, ...)
+        _splice_pool(pool, src[:, row], block_ids, skip_blocks)
+    return paged
+
+
+def _splice_pool(pool, sel, block_ids: List[int], skip_blocks: int):
+    """pool (n_p, nb, bs, *tail) <- sel (n_p, S, *tail), in place."""
+    bs = pool.shape[2]
+    L = len(block_ids) * bs
+    S = sel.shape[1]
+    if S < L:                                        # pad up to block cover
+        pad = sel.new_zeros((sel.shape[0], L - S) + tuple(sel.shape[2:]))
+        sel = torch.cat([sel, pad], dim=1)
+    chunk = sel[:, :L].reshape((sel.shape[0], len(block_ids), bs)
+                               + tuple(sel.shape[2:]))
+    ids = torch.tensor(block_ids[skip_blocks:], dtype=torch.long,
+                       device=pool.device)
+    pool[:, ids] = chunk[:, skip_blocks:].to(pool.dtype)
+
+
+def paged_kv_bytes_per_block(paged) -> int:
+    """Bytes of pool storage per block, summed over every attention
+    layer (the unit of the O(used-blocks) memory claim)."""
+    total = 0
+    for name, leaf in paged.items():
+        if name.rsplit(".", 1)[-1] in POOL_LEAVES:
+            total += leaf.numel() * leaf.element_size() // leaf.shape[1]
+    assert total, "no pool leaves found"
+    return total
