@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Serves the full published widths of gemma-2b (random weights from a
-seed) through the port's paged scheduler on one NVIDIA GPU, with decode
-attention in the hand-written CUDA kernel, and holds that kernel against
-its plain PyTorch version.
+Drives the port's two paths at the full published widths of gemma-2b
+(random weights from a seed) on one NVIDIA GPU: paged serving, with
+decode attention in a hand-written CUDA kernel, and SNGM training, with
+the two multi-tensor optimizer passes in hand-written CUDA kernels.
+Holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
 Phases, each raising on failure:
-  1. the card (nvidia-smi name and power limit), versions, the kernel's
-     build time and its ptxas register/spill lines;
+  1. the card (nvidia-smi name and power limit), versions, the build
+     time of each kernel library (one nvcc per library, run side by
+     side) and their ptxas register/spill lines;
   2. the kernel against its plain version on the card, fp32 and bf16,
      over head-group, kv-head, head-dim and block-size grids, window and
      softcap, frontiers on and inside blocks, an inactive row, and the
@@ -22,7 +24,21 @@ Phases, each raising on failure:
   4. the whole decode path through the kernel against the model's plain
      gather path on the card, teacher-forced on the same tokens, at the
      served bf16 compute and at fp32 compute;
-  5. one JSON line of kernel timings against their bounds, then the
+  5. the paged kernel's timing against its bound;
+  6. ``chunk_sumsq`` and ``fused_update`` against their plain versions,
+     bitwise: fp32 and bf16, wd 0 and 1e-4, both cast orders, nesterov,
+     per-row coefficients, signed zeros, and the full gemma-2b buffer;
+     then their times on that buffer against their byte bounds;
+  7. full-width training, the slice's main path: 4 SNGM steps of
+     gemma-2b through ``repro_torch.launch.train``'s own functions
+     (batch 8 x 512 tokens, 2 micro-batches); exactly one launch of each
+     optimizer kernel per step; loss, grad_norm, step time, tokens/s,
+     peak memory, and the optimizer step's share of a step;
+  8. the port's ``fused=None`` against ``fused="multi_tensor"`` from one
+     state and the same full-width gradients, bitwise over 3 steps,
+     every kind, fp32 and bf16 (depth cut to 2 layers to fit both
+     states and the plain path's temporaries beside each other);
+  9. one JSON line of kernel timings against their bounds, then the
      JSON result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside
@@ -88,18 +104,21 @@ def traffic(vocab: int, seed: int = 0):
 # phase 1: the card
 # ---------------------------------------------------------------------------
 
-def phase_card(torch, ops):
+def phase_card(torch, build, sources):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    lib = ops.library()
-    log(f"{'built' if lib.built else 'loaded'} {lib.path.relative_to(ROOT)} "
-        f"in {lib.seconds:.2f} s")
-    for line in lib.ptxas:
-        log(f"ptxas: {line}")
+    t0 = time.perf_counter()
+    libs = build.build_libraries(sources)
+    log(f"kernel libraries ready in {time.perf_counter() - t0:.2f} s")
+    for lib in libs.values():
+        log(f"{'built' if lib.built else 'loaded'} {lib.path.relative_to(ROOT)} "
+            f"in {lib.seconds:.2f} s")
+        for line in lib.ptxas:
+            log(f"ptxas: {line}")
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +377,307 @@ def phase_timing(torch, ops, ref, launches, err, n_layers, step_ms):
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the multi-tensor kernels against plain, and their times
+# ---------------------------------------------------------------------------
+
+MT_SOURCE = "src/repro_torch/kernels/multi_tensor/csrc/multi_tensor.cu"
+MT_REPLACES = {"chunk_sumsq": "src/repro/kernels/multi_tensor/kernel.py:156",
+               "fused_update": "src/repro/kernels/multi_tensor/kernel.py:211"}
+
+
+def mt_inputs(torch, n, dtype, seed, signed_zeros=False):
+    """Flat p, g (dtype), u (f32) of n elements and per-row coefficients."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    dt = getattr(torch, dtype)
+    p = torch.randn(n, device="cuda", generator=gen).to(dt)
+    g = torch.randn(n, device="cuda", generator=gen).to(dt)
+    u = torch.randn(n, device="cuda", generator=gen)
+    a = torch.rand(n // 1024, device="cuda", generator=gen) + 0.5
+    if signed_zeros:                   # zeros of both signs in p, g and u
+        for t in (p, g, u):
+            t[::7] = 0.0
+            t[3::7] = -0.0
+    return p, g, u, a
+
+
+def same_bits(torch, a, b):
+    """Equal bit patterns (torch.equal calls -0.0 and 0.0 equal)."""
+    iview = {2: torch.int16, 4: torch.int32}
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(iview[a.element_size()]), b.view(iview[b.element_size()])))
+
+
+def mt_compare(torch, ops, ref, p, g, u, a, errs, rows=1 << 16, **kw):
+    """Kernels (fused_update on clones of p and u) against the plain
+    versions, bitwise, ``rows`` rows at a time so that the plain
+    version's temporaries stay small.  Folds the largest absolute
+    difference seen into ``errs`` (0.0 unless it raises)."""
+    c = torch.tensor(0.37)
+    kp, ku = p.clone(), u.clone()
+    kq = ops.fused_update(kp, g, ku, a, c, **kw)
+    ks = ops.chunk_sumsq(g, p, wd=kw["wd"])
+    kr = ops.chunk_sumsq(g)
+    step = rows * 1024
+    for lo in range(0, p.numel(), step):
+        sl = slice(lo, min(lo + step, p.numel()))
+        rl = slice(lo // 1024, sl.stop // 1024)
+        rp, ru, rq = ref.fused_update_ref(p[sl], g[sl], u[sl], a[rl], c, **kw)
+        pairs = {"fused_update": ((kp[sl], rp), (ku[sl], ru), (kq[rl], rq)),
+                 "chunk_sumsq": ((ks[rl], ref.chunk_sumsq_ref(g[sl], p[sl], wd=kw["wd"])),
+                                 (kr[rl], ref.chunk_sumsq_ref(g[sl])))}
+        for name, ps in pairs.items():
+            for k, r in ps:
+                errs[name] = max(errs[name], (k.float() - r.float()).abs().max().item())
+                if not same_bits(torch, k, r):
+                    raise AssertionError(
+                        f"{name} differs from its plain version at rows "
+                        f"{rl.start}-{rl.stop} ({kw}, {p.dtype}): max abs "
+                        f"diff {errs[name]:.3g}")
+    torch.cuda.synchronize()
+
+
+def gemma_buffer_elems(torch, cfg):
+    """Elements of the one fp32 bucket that gemma-2b's params pack into."""
+    from repro_torch.core.multi_tensor import build_layout
+    from repro_torch.models import model_defs
+    from repro_torch.models.param import flatten_defs
+    meta = {k: torch.empty(d.shape, dtype=d.dtype, device="meta")
+            for k, d in flatten_defs(model_defs(cfg)).items()}
+    (bucket,) = build_layout(meta).buckets
+    return bucket.n_elems
+
+
+def phase_mt_kernels(torch, ops, ref, cfg):
+    errs = {"chunk_sumsq": 0.0, "fused_update": 0.0}
+    n_cases = 0
+    for dtype in ("float32", "bfloat16"):
+        for seed, signed_zeros in ((0, False), (1, True)):
+            p, g, u, a = mt_inputs(torch, 4 * ref.TILE, dtype, seed, signed_zeros)
+            for wd in (0.0, 1e-4):
+                for cast_g_first in (False, True):
+                    for nesterov in (False, True):
+                        mt_compare(torch, ops, ref, p, g, u, a, errs, beta=0.9, wd=wd,
+                                   cast_g_first=cast_g_first, nesterov=nesterov)
+                        n_cases += 1
+    n = gemma_buffer_elems(torch, cfg)
+    p, g, u, a = mt_inputs(torch, n, "float32", seed=2)
+    a.fill_(1.0 / 300.0)               # SNGM's one global coefficient
+    mt_compare(torch, ops, ref, p, g, u, a, errs, beta=0.9, wd=1e-4)
+    log(f"chunk_sumsq and fused_update equal their plain versions bitwise in "
+        f"{n_cases} cases of 262,144 elements (fp32/bf16, wd 0/1e-4, both cast "
+        f"orders, nesterov, per-row coefficients, signed zeros) and on the full "
+        f"gemma-2b fp32 buffer of {n:,} elements (sngm, wd 1e-4); max abs "
+        f"diff {errs}")
+    return (p, g, u, a), errs
+
+
+def phase_mt_timing(torch, ops, ref, p, g, u, a, errs, n=20):
+    """Times on the full gemma-2b fp32 buffer, in the variants an SNGM
+    step launches (decayed norm, wd 1e-4; update without nesterov)."""
+    c, wd = torch.tensor(1.6), 1e-4
+    n_el, n_rows = p.numel(), p.numel() // 1024
+    rows = {}
+    # the plain versions' temporaries on the whole buffer would not fit
+    # beside it, so each plain call walks it in 4 slices of rows
+    q = n_el // 4
+
+    def quarters(fn):
+        return lambda: [fn(slice(i, i + q)) for i in range(0, n_el, q)]
+    # chunk_sumsq, decayed (the main path's variant): reads g and p
+    nbytes = 2 * 4 * n_el + 4 * n_rows
+    flops = 4 * n_el                   # wd*p, +g, square, add
+    ms = time_calls(torch, lambda: ops.chunk_sumsq(g, p, wd=wd), n)
+    plain_ms = time_calls(torch, quarters(
+        lambda sl: ref.chunk_sumsq_ref(g[sl], p[sl], wd=wd)), n)
+    ms2 = time_calls(torch, lambda: ops.chunk_sumsq(g, p, wd=wd), n)
+    raw_ms = time_calls(torch, lambda: ops.chunk_sumsq(g), n)
+    lib = lambda: torch.linalg.vector_norm(g.view(-1, 1024), dim=1).square()  # noqa: E731
+    lib_err = max((lib()[i // 1024:(i + q) // 1024] - ref.chunk_sumsq_ref(
+        g[i:i + q])).abs().max().item() for i in range(0, n_el, q))
+    lib_ms = time_calls(torch, lib, n)
+    raw_bound = (4 * n_el + 4 * n_rows) / HBM_BYTES_PER_S * 1e3
+    rows["chunk_sumsq"] = mt_row("chunk_sumsq", errs, ms, plain_ms, nbytes, flops)
+    log(f"chunk_sumsq on {n_el:,} fp32 elements, decayed: kernel {ms:.3f} / "
+        f"{ms2:.3f} ms, plain {plain_ms:.3f} ms, bound {rows['chunk_sumsq']['bound_ms']:.3f} "
+        f"ms by bytes ({nbytes:,} bytes); raw: kernel {raw_ms:.3f} ms, "
+        f"vector_norm(dim=1)^2 {lib_ms:.3f} ms (max abs err vs plain "
+        f"{lib_err:.3g}), bound {raw_bound:.3f} ms")
+    # fused_update: reads p, g, u, a; writes p, u, usq
+    nbytes = 5 * 4 * n_el + 2 * 4 * n_rows
+    flops = 11 * n_el
+    upd = lambda: ops.fused_update(p, g, u, a, c, beta=0.9, wd=wd)  # noqa: E731
+    ms = time_calls(torch, upd, n)
+    plain_ms = time_calls(torch, quarters(lambda sl: ref.fused_update_ref(
+        p[sl], g[sl], u[sl], a[sl.start // 1024:sl.stop // 1024], c,
+        beta=0.9, wd=wd)), n)
+    ms2 = time_calls(torch, upd, n)
+    rows["fused_update"] = mt_row("fused_update", errs, ms, plain_ms, nbytes, flops)
+    log(f"fused_update on {n_el:,} fp32 elements: kernel {ms:.3f} / {ms2:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {rows['fused_update']['bound_ms']:.3f} ms "
+        f"by bytes ({nbytes:,} bytes); no single PyTorch call computes it")
+    return rows
+
+
+def mt_row(name, errs, ms, plain_ms, nbytes, flops):
+    """A kernels-line row; no single PyTorch call computes either
+    function as the main path runs it (the raw norm's yardstick is
+    logged beside it), so ``library_ms`` is null."""
+    b, f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {"name": name, "route": "cuda", "source": MT_SOURCE,
+            "replaces": MT_REPLACES[name], "launches": 0,
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(b, f) * 1e3,
+            "bound_by": "bytes" if b >= f else "operations", "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: full-width training, the slice's main path
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--arch", ARCH, "--steps", "4", "--batch", "8", "--seq", "512",
+              "--n-micro", "2", "--optimizer", "sngm", "--fused", "multi_tensor",
+              "--weight-decay", "1e-4", "--log-every", "1", "--device", "cuda",
+              "--seed", "0"]
+
+
+def phase_train(torch, kernels, train_mod):
+    args = train_mod.parse_args(TRAIN_ARGV)
+    t0 = time.perf_counter()
+    run = train_mod.build(args)
+    torch.cuda.synchronize()
+    log(f"{run.cfg.name}: {run.n_params:,} fp32 params (random, seed 0), "
+        f"resident p and u buffers, built in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    state, mem = train_mod.train(args, run)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    recs = [m for _, m in mem.steps]
+    if len(recs) != args.steps:
+        raise AssertionError(f"{len(recs)} step records for {args.steps} steps")
+    for t, m in enumerate(recs):
+        if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm", "lr", "update_norm")):
+            raise AssertionError(f"step {t}: non-finite stats {m}")
+    if launches["chunk_sumsq"] != args.steps or launches["fused_update"] != args.steps:
+        raise AssertionError(f"launches {launches} for {args.steps} steps: "
+                             f"want one of each kernel per step")
+    steady = [m["step_time_s"] for m in recs[1:]]
+    step_s = float(np.median(steady))
+    tokens = args.batch * args.seq
+    log(f"trained {args.steps} SNGM steps: step 0 {recs[0]['step_time_s']:.3f} s "
+        f"(first use), then {', '.join(f'{s:.3f}' for s in steady)} s; median "
+        f"{step_s:.3f} s = {tokens / step_s:.0f} tokens/s; peak device memory "
+        f"{peak_gib:.2f} GiB; launches per step: chunk_sumsq "
+        f"{launches['chunk_sumsq'] / args.steps:g}, fused_update "
+        f"{launches['fused_update'] / args.steps:g}")
+    return run, state, launches, step_s
+
+
+def phase_split(torch, run, state, step_s):
+    """The optimizer step alone on the trained state, with gradients of the
+    same size, against the whole step."""
+    from repro_torch.core.multi_tensor import FlatGrads, zeros_flats
+    layout = state.opt_state.layout
+    g = zeros_flats(layout, device="cuda")
+    for f in g:
+        f.normal_().mul_(1e-3)
+    grads = FlatGrads(tuple(g), layout)
+    holder = {"s": state}
+
+    def opt_step():
+        holder["s"], _ = run.opt.step_state(grads, holder["s"])
+    opt_ms = time_calls(torch, opt_step, n=5)
+    log(f"optimizer step (2 launches + norm folds) {opt_ms:.2f} ms = "
+        f"{100 * opt_ms / (step_s * 1e3):.2f} % of a {step_s * 1e3:.0f} ms step; "
+        f"forward+backward of 2 micro-batches ~ {step_s * 1e3 - opt_ms:.0f} ms")
+    del grads, g
+    profile_step(torch, run, holder["s"])
+    return opt_ms
+
+
+def profile_step(torch, run, state, top=8):
+    """One more train step under torch.profiler: the device's busy share
+    of the step's wall time and the kernels that take the most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    batch = run.data.batch_at(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run.step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies): a CPU op's device time
+    # repeats its kernels'
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if busy_ms == 0:
+        log("profiled step: the profiler saw no device time (not measured)")
+        return
+    log(f"profiled step: {wall_ms:.0f} ms wall (profiler on), device busy "
+        f"{busy_ms:.0f} ms = {100 * busy_ms / wall_ms:.1f} %, idle "
+        f"{100 - 100 * busy_ms / wall_ms:.1f} %; top kernels by device time:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"  {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: fused=None against fused="multi_tensor" on the same gradients
+# ---------------------------------------------------------------------------
+
+KINDS = [("sngm", {}), ("sngm", {"norm_mode": "per_tensor"}), ("msgd", {}),
+         ("lars", {}), ("sngm", {"nesterov": True})]
+
+
+def phase_fused_vs_plain(torch, cfg, n_layers=2):
+    from repro_torch.core.optim import make_optimizer
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Runtime, materialize, model_defs
+    from repro_torch.training.step import _grad_leaves, loss_fn
+    checked = []
+    for param_dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, n_layers=n_layers, param_dtype=param_dtype)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1)
+        params = materialize(model_defs(c), gen, torch.device("cuda"))
+        # one set of full-width gradients, from one backward pass
+        opt = make_optimizer("sngm", {"name": "constant", "kwargs": {"lr": 0.1}},
+                             fused="multi_tensor")
+        leaves, grads = _grad_leaves(opt.init_state(params))
+        batch = SyntheticLM(c.vocab_size, 512, 2, seed=1,
+                            device=torch.device("cuda")).batch_at(0)
+        loss_fn(leaves, batch, c, Runtime(torch.device("cuda"), remat=True))[0].backward()
+        del leaves
+        for name, kw in KINDS:
+            sched = {"name": "poly_power", "kwargs": {"lr0": 1.6, "total_steps": 4}}
+            opts = [make_optimizer(name, sched, beta=0.9, weight_decay=1e-4,
+                                   fused=f, **kw) for f in (None, "multi_tensor")]
+            states = [o.init_state(params) for o in opts]
+            for t in range(3):
+                outs = [o.step_state(grads if f else grads.tree, s)
+                        for o, s, f in zip(opts, states, (0, 1))]
+                states = [s for s, _ in outs]
+                sa, sb = (st for _, st in outs)
+                pa, pb = (s.params_view for s in states)
+                ua, ub = (s.opt_state.momentum for s in states)
+                same = (all(same_bits(torch, sa[k], sb[k]) for k in sa)
+                        and all(same_bits(torch, pa[k], pb[k]) for k in pa)
+                        and all(same_bits(torch, ua[k], ub[k]) for k in ua))
+                if not same:
+                    raise AssertionError(f"{name} {kw} {param_dtype} step {t}: "
+                                         f"fused=None and multi_tensor differ")
+            checked.append(f"{name}{kw or ''}")
+            del states, outs
+        del params, grads
+    log(f"fused=None == multi_tensor bitwise over 3 steps on the same "
+        f"gradients, fp32 and bf16 params, gemma-2b widths at {n_layers} "
+        f"layers: {', '.join(sorted(set(checked)))}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
@@ -370,25 +690,47 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch import kernels, serving
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.multi_tensor import ops as mt_ops
+    from repro_torch.kernels.multi_tensor import ref as mt_ref
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref as ref
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
     from repro_torch.models import Runtime, make_runtime
 
     t_start = time.perf_counter()
-    phase_card(torch, ops)
+    phase_card(torch, build, {"paged_attention": [ops.SOURCE],
+                              mt_ops.LIB_NAME: [mt_ops.SOURCE]})
     err = phase_kernel(torch, ops, ref)
     rt = make_runtime("cuda")
     cfg = get_config(ARCH)
     params, launches, step_ms = phase_serve(torch, kernels, serve_mod, cfg, rt)
     phase_path(torch, cfg, params, Runtime, rt.device, serving)
+    del params
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     params32, _ = serve_mod.load_model(cfg32, rt, seed=0)
     phase_path(torch, cfg32, params32, Runtime, rt.device, serving)
     del params32
     row = phase_timing(torch, ops, ref, launches, err, cfg.n_layers, step_ms)
-    log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [row]}), flush=True)
+    t_serve = time.perf_counter()
+
+    buffers, errs = phase_mt_kernels(torch, mt_ops, mt_ref, cfg)
+    mt_rows = phase_mt_timing(torch, mt_ops, mt_ref, *buffers, errs)
+    del buffers
+    torch.cuda.empty_cache()
+    run, state, mt_launches, step_s = phase_train(torch, kernels, train_mod)
+    phase_split(torch, run, state, step_s)
+    del run, state
+    torch.cuda.empty_cache()
+    phase_fused_vs_plain(torch, cfg)
+    for name, r in mt_rows.items():
+        r["launches"] = mt_launches[name]
+    log(f"total {time.perf_counter() - t_start:.1f} s (serving phases "
+        f"{t_serve - t_start:.1f} s, training phases "
+        f"{time.perf_counter() - t_serve:.1f} s)")
+    print(json.dumps({"kernels": [row, mt_rows["chunk_sumsq"],
+                                  mt_rows["fused_update"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,8 +3,13 @@
 A second package beside the JAX reference (``src/repro``), held
 against it by the parity tests in ``tests/test_torch_*.py``.  It
 imports ``torch``, never ``jax``, and nothing of ``repro``.  Ported so
-far: paged serving of the dense decoder archs
-(``python -m repro_torch.launch.serve``), with paged decode attention
-as a hand-written CUDA kernel for ``sm_90a``
-(``kernels/paged_attention``).
+far, for the dense decoder archs at their full widths:
+
+  * training (``python -m repro_torch.launch.train``): SNGM and its
+    baselines with gradient accumulation, the multi-tensor optimizer
+    passes as hand-written CUDA kernels (``kernels/multi_tensor``);
+  * paged serving (``python -m repro_torch.launch.serve``), decode
+    attention as a hand-written CUDA kernel (``kernels/paged_attention``).
+
+The kernels are built for ``sm_90a`` at first use.
 """

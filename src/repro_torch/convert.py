@@ -23,9 +23,10 @@ def _is_bf16(dtype: np.dtype) -> bool:
 
 
 def array_to_tensor(a: np.ndarray) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:          # e.g. np.asarray of a JAX array
-        a = a.copy()
+    # not np.ascontiguousarray: it turns a 0-d array into shape (1,)
+    a = np.asarray(a)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = a.copy(order="C")          # e.g. np.asarray of a JAX array
     if _is_bf16(a.dtype):
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
@@ -65,3 +66,32 @@ def to_numpy_tree(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = tensor_to_array(t)
     return tree
+
+
+def train_state_from_numpy(params: Dict[str, Any], momentum: Dict[str, Any],
+                           step: int = 0, *, resident: bool,
+                           device="cpu"):
+    """The JAX package's params and ``OptState.momentum`` (numpy trees)
+    -> the port's ``TrainState``: resident (params and momentum packed
+    into flat buffers, as ``fused="multi_tensor"`` keeps them) or in
+    dict form (``OptState``), on ``device``.  Bitwise, bf16 included."""
+    from repro_torch.core.multi_tensor import build_layout, flatten
+    from repro_torch.core.optim import FlatOptState, OptState, TrainState
+    p = {k: v.to(device) for k, v in from_numpy_tree(params).items()}
+    u = {k: v.to(device) for k, v in from_numpy_tree(momentum).items()}
+    if set(u) != set(p):
+        raise ValueError("momentum keys do not match the params'")
+    if not resident:
+        return TrainState(params=p, opt_state=OptState(int(step), u))
+    layout = build_layout(p)
+    return TrainState(params=None, opt_state=FlatOptState(
+        step=int(step), p_flats=tuple(flatten(p, layout)),
+        u_flats=tuple(flatten(u, layout, cast_to=torch.float32)),
+        layout=layout))
+
+
+def train_state_to_numpy(state):
+    """Inverse of ``train_state_from_numpy``, for either form: (params,
+    momentum, step) as numpy trees keyed like the JAX package's."""
+    return (to_numpy_tree(state.params_view),
+            to_numpy_tree(state.opt_state.momentum), int(state.step))

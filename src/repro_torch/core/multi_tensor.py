@@ -1,0 +1,422 @@
+"""Multi-tensor fused optimizer engine, single device.
+
+A port of ``repro.core.multi_tensor`` (sharding, LAMB, clip rounds and
+EMA slots are not ported yet).  The parameter dict is packed into
+dtype-bucketed flat buffers; one ``chunk_sumsq`` pass per bucket gives
+every global and per-tensor squared norm, and one ``fused_update`` pass
+per bucket applies momentum and the update — 2 kernel launches per
+bucket and step for sngm, sngm_per_tensor and msgd, 3 for lars.
+
+Numerics are bitwise those of the plain optimizer path (``core.optim``
+with ``fused=None``) because both share one reduction order:
+``leaf_sumsq`` sums CHUNK-row partials (``ref.row_sum``) and folds them
+pairwise (``_fold_sum``); every segment starts on a CHUNK boundary, so
+the kernels' row partials are the same numbers in the same order.
+
+Leaf order is the JAX tree's.  ``jax.tree_util`` walks dict keys sorted
+at every level, so "blocks.*" comes before "embed" before "final_norm",
+and global norms add per-leaf values one after the other in that order.
+The port's ``{dotted.path: Tensor}`` dicts keep insertion order, so
+``leaf_order`` sorts the paths the way JAX does and every sum below
+walks that order.
+
+Residency: ``FlatOptState`` keeps params and f32 momentum as flat
+buffers across steps, and the kernels update them in place, where the
+JAX package donates them to ``input_output_aliases``.  A state that has
+been stepped must not be used again (its buffers now hold the new
+values), as a donated JAX state may not.  ``FlatOptState.params`` gives
+the parameters as views into ``p_flats``, so the model reads them without
+a second copy.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels.multi_tensor import ops as _ops
+from repro_torch.kernels.multi_tensor.ref import CHUNK, TILE, row_sum
+
+Tree = Dict[str, torch.Tensor]
+
+
+def leaf_order(paths) -> List[str]:
+    """Dotted paths in the JAX tree's leaf order (keys sorted per level)."""
+    return sorted(paths, key=lambda p: tuple(p.split(".")))
+
+
+def tree_leaves(tree: Tree) -> List[torch.Tensor]:
+    return [tree[k] for k in leaf_order(tree)]
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+# ---------------------------------------------------------------------------
+# packing accounting
+# ---------------------------------------------------------------------------
+
+_PACKED = {"bytes": 0, "buffers": 0}
+
+
+def _record_packed(flats: Sequence[torch.Tensor]) -> None:
+    for f in flats:
+        _PACKED["bytes"] += f.numel() * f.element_size()
+        _PACKED["buffers"] += 1
+
+
+@contextlib.contextmanager
+def count_packed_bytes():
+    """Count bytes packed into flat buffers inside the block.  A resident
+    step fed ``FlatGrads`` (what the train step accumulates) packs
+    nothing, fed a gradient dict it packs the gradients; the per-step
+    path re-packs params, grads and momentum."""
+    start = dict(_PACKED)
+    box = {"bytes": 0, "buffers": 0}
+    try:
+        yield box
+    finally:
+        box["bytes"] = _PACKED["bytes"] - start["bytes"]
+        box["buffers"] = _PACKED["buffers"] - start["buffers"]
+
+
+# ---------------------------------------------------------------------------
+# canonical chunked reduction (shared with the plain optimizer path)
+# ---------------------------------------------------------------------------
+
+def _fold_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum a 1-D f32 tensor by explicit pairwise halving (odd lengths get
+    one zero appended first), the JAX package's fixed association."""
+    n = x.shape[0]
+    while n > 1:
+        if n % 2:
+            x = torch.cat([x, x.new_zeros(1)])
+            n += 1
+        x = x[:n // 2] + x[n // 2:]
+        n //= 2
+    return x[0]
+
+
+def leaf_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """Sum of squares of one tensor, f32, in the engine's order: CHUNK-row
+    partials, then a pairwise fold.  A size-0 leaf gives 0.0 (one zero
+    chunk), matching its empty segment."""
+    xf = x.float().reshape(-1)
+    pad = -xf.numel() % CHUNK
+    if pad or xf.numel() == 0:
+        xf = torch.cat([xf, xf.new_zeros(pad or CHUNK)])
+    x2 = xf.view(-1, CHUNK)
+    return _fold_sum(row_sum(x2 * x2))
+
+
+def tree_squared_norm(tree: Tree) -> torch.Tensor:
+    """Sum of squared entries of a whole dict, f32, leaves added in the
+    JAX tree's order."""
+    return sum(leaf_sumsq(x) for x in tree_leaves(tree))
+
+
+def global_norm(tree: Tree) -> torch.Tensor:
+    return torch.sqrt(tree_squared_norm(tree))
+
+
+# ---------------------------------------------------------------------------
+# layout: dtype buckets of chunk-aligned segments
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """One leaf's slice of its bucket buffer ([offset, offset+size) holds
+    the flattened leaf; the segment is padded out to chunk_hi*CHUNK)."""
+    index: int                  # position in the JAX leaf order
+    path: str
+    offset: int                 # element offset, always a CHUNK multiple
+    size: int
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    chunk_lo: int               # [chunk_lo, chunk_hi) partial-row range
+    chunk_hi: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Bucket:
+    dtype: torch.dtype
+    segments: Tuple[Segment, ...]
+    n_elems: int                # padded buffer length, TILE multiple
+    n_chunks: int
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeLayout:
+    paths: Tuple[str, ...]      # in the JAX leaf order
+    buckets: Tuple[Bucket, ...]
+
+    @property
+    def n_leaves(self) -> int:
+        return len(self.paths)
+
+
+def build_layout(tree: Tree) -> TreeLayout:
+    """Static (shape/dtype-only) bucketing of a dict.  Leaves keep their
+    JAX-order position within a bucket; buckets are ordered by dtype
+    name."""
+    paths = tuple(leaf_order(tree))
+    by_dtype: Dict[str, List[int]] = {}
+    for i, path in enumerate(paths):
+        by_dtype.setdefault(dtype_name(tree[path].dtype), []).append(i)
+    buckets = []
+    for dname in sorted(by_dtype):
+        segs, off = [], 0
+        for i in by_dtype[dname]:
+            leaf = tree[paths[i]]
+            size = leaf.numel()
+            n_chunks = max(1, -(-size // CHUNK))
+            segs.append(Segment(index=i, path=paths[i], offset=off, size=size,
+                                shape=tuple(leaf.shape), dtype=leaf.dtype,
+                                chunk_lo=off // CHUNK,
+                                chunk_hi=off // CHUNK + n_chunks))
+            off += n_chunks * CHUNK
+        n_elems = -(-off // TILE) * TILE
+        buckets.append(Bucket(dtype=getattr(torch, dname), segments=tuple(segs),
+                              n_elems=n_elems, n_chunks=n_elems // CHUNK))
+    return TreeLayout(paths=paths, buckets=tuple(buckets))
+
+
+def zeros_flats(layout: TreeLayout, dtype: Optional[torch.dtype] = None,
+                device=None) -> List[torch.Tensor]:
+    """One zero buffer per bucket, in the bucket dtype or ``dtype``."""
+    return [torch.zeros(b.n_elems, dtype=dtype or b.dtype, device=device)
+            for b in layout.buckets]
+
+
+def flatten(tree: Tree, layout: TreeLayout,
+            cast_to: Optional[torch.dtype] = None) -> List[torch.Tensor]:
+    """Pack a dict into one new flat buffer per bucket (zero padding);
+    ``cast_to`` overrides the buffer dtype (momentum is always f32)."""
+    if set(tree) != set(layout.paths):
+        raise ValueError("tree keys do not match the layout's paths")
+    device = tree[layout.paths[0]].device if layout.paths else None
+    flats = zeros_flats(layout, cast_to, device)
+    for b, flat in zip(layout.buckets, flats):
+        for s in b.segments:
+            flat[s.offset:s.offset + s.size] = tree[s.path].reshape(-1)
+    _record_packed(flats)
+    return flats
+
+
+def unflatten(flats: Sequence[torch.Tensor], layout: TreeLayout) -> Tree:
+    """Inverse of ``flatten``: every leaf is a view into its buffer (no
+    copy), keyed in the JAX leaf order."""
+    out = {}
+    for b, flat in zip(layout.buckets, flats):
+        for s in b.segments:
+            out[s.path] = flat[s.offset:s.offset + s.size].view(s.shape)
+    return {p: out[p] for p in layout.paths}
+
+
+def _segment_sums(partials: torch.Tensor, bucket: Bucket) -> List[torch.Tensor]:
+    """Per-chunk partials -> one scalar per segment, the same fold as
+    ``leaf_sumsq``'s last step."""
+    return [_fold_sum(partials[s.chunk_lo:s.chunk_hi]) for s in bucket.segments]
+
+
+def _per_chunk(bucket: Bucket, seg_vals: Sequence[torch.Tensor],
+               fill: float = 0.0) -> torch.Tensor:
+    """Per-segment scalars -> the (n_chunks,) f32 coefficient array the
+    update kernel reads (tail-padding chunks get ``fill``)."""
+    pieces = [v.reshape(1).float().expand(s.chunk_hi - s.chunk_lo)
+              for s, v in zip(bucket.segments, seg_vals)]
+    used = bucket.segments[-1].chunk_hi if bucket.segments else 0
+    if bucket.n_chunks > used:
+        dev = pieces[0].device if pieces else None
+        pieces.append(torch.full((bucket.n_chunks - used,), fill,
+                                 dtype=torch.float32, device=dev))
+    return torch.cat(pieces)
+
+
+def _leaf_values(parts_per_bucket, layout: TreeLayout) -> List[torch.Tensor]:
+    """Fold per-chunk partials to one scalar per leaf, in the JAX leaf
+    order (the order every canonical reduction sums in)."""
+    out: List[Optional[torch.Tensor]] = [None] * layout.n_leaves
+    for b, parts in zip(layout.buckets, parts_per_bucket):
+        for s, v in zip(b.segments, _segment_sums(parts, b)):
+            out[s.index] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# flat-buffer-resident optimizer state
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FlatOptState:
+    """Params (bucket dtype) and f32 momentum kept as flat buffers, one
+    per layout bucket.  The buffers are the parameters' single owner;
+    ``params`` and ``momentum`` are views into them."""
+    step: int
+    p_flats: Tuple[torch.Tensor, ...]
+    u_flats: Tuple[torch.Tensor, ...]
+    layout: TreeLayout
+
+    @property
+    def params(self) -> Tree:
+        return unflatten(self.p_flats, self.layout)
+
+    @property
+    def momentum(self) -> Tree:
+        return unflatten(self.u_flats, self.layout)
+
+
+def init_flat_state(params: Tree) -> FlatOptState:
+    """Params packed once, momentum zeros (f32), on the params' device."""
+    layout = build_layout(params)
+    p_flats = flatten(params, layout)
+    device = p_flats[0].device if p_flats else None
+    return FlatOptState(step=0, p_flats=tuple(p_flats),
+                        u_flats=tuple(zeros_flats(layout, torch.float32, device)),
+                        layout=layout)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatGrads:
+    """Gradients already in the engine's per-bucket flat buffers."""
+    flats: Tuple[torch.Tensor, ...]
+    layout: TreeLayout
+
+    @property
+    def tree(self) -> Tree:
+        return unflatten(self.flats, self.layout)
+
+
+def check_grad_dtypes(grads: Tree, layout: TreeLayout) -> None:
+    """The engine buckets by PARAM dtype, so gradients must match their
+    parameter's dtype leaf for leaf."""
+    if set(grads) != set(layout.paths):
+        raise ValueError("gradient keys do not match the parameters'")
+    for b in layout.buckets:
+        for s in b.segments:
+            if grads[s.path].dtype != s.dtype:
+                raise ValueError(
+                    f"multi_tensor fused path requires grads to match the "
+                    f"parameter dtype per leaf; got grad "
+                    f"{grads[s.path].dtype} for param {s.dtype} at {s.path}. "
+                    f"Cast the gradients (or use fused=None, which promotes "
+                    f"to f32).")
+
+
+def resident_step(kind: str, grads, state: FlatOptState, *, lr, beta: float,
+                  weight_decay: float = 0.0, eps: float = 1e-12,
+                  trust: float = 0.001, nesterov: bool = False
+                  ) -> Tuple[FlatOptState, dict]:
+    """The resident fast path: params and momentum stay in ``state``'s
+    buffers and are updated in place; gradients come as ``FlatGrads``
+    (used as they are) or as a dict (packed here).  Returns
+    ``(new_state, stats)``; the new state shares the buffers."""
+    layout = state.layout
+    if isinstance(grads, FlatGrads):
+        if grads.layout != layout:
+            raise ValueError("FlatGrads were packed with a different "
+                             "TreeLayout than the resident state carries")
+        g_flats = list(grads.flats)
+    else:
+        check_grad_dtypes(grads, layout)
+        g_flats = flatten(grads, layout)
+    stats = multi_tensor_step_flat(
+        kind, layout, state.p_flats, g_flats, state.u_flats, lr=lr,
+        beta=beta, weight_decay=weight_decay, eps=eps, trust=trust,
+        nesterov=nesterov)
+    return dataclasses.replace(state, step=state.step + 1), stats
+
+
+# ---------------------------------------------------------------------------
+# the engine step
+# ---------------------------------------------------------------------------
+
+KINDS = ("sngm_global", "sngm_per_tensor", "msgd", "lars")
+
+
+def multi_tensor_step(kind: str, params: Tree, grads: Tree, momentum: Tree, *,
+                      lr, beta: float, weight_decay: float = 0.0,
+                      eps: float = 1e-12, trust: float = 0.001,
+                      nesterov: bool = False) -> Tuple[Tree, Tree, dict]:
+    """One fused step over whole dicts: packs params, grads and momentum
+    into new flat buffers, runs the engine and unpacks.  Returns
+    (new_params, new_momentum, stats); the inputs are left untouched."""
+    layout = build_layout(params)
+    check_grad_dtypes(grads, layout)
+    p_flats = flatten(params, layout)
+    g_flats = flatten(grads, layout)
+    u_flats = flatten(momentum, layout, cast_to=torch.float32)
+    stats = multi_tensor_step_flat(
+        kind, layout, p_flats, g_flats, u_flats, lr=lr, beta=beta,
+        weight_decay=weight_decay, eps=eps, trust=trust, nesterov=nesterov)
+    return unflatten(p_flats, layout), unflatten(u_flats, layout), stats
+
+
+def multi_tensor_step_flat(kind: str, layout: TreeLayout,
+                           p_flats: Sequence[torch.Tensor],
+                           g_flats: Sequence[torch.Tensor],
+                           u_flats: Sequence[torch.Tensor], *, lr,
+                           beta: float, weight_decay: float = 0.0,
+                           eps: float = 1e-12, trust: float = 0.001,
+                           nesterov: bool = False) -> dict:
+    """The engine core over one (p, g, u) buffer triple per bucket; p and
+    u are updated in place.  Returns the stats {grad_norm, lr,
+    update_norm} (0-dim f32 tensors, left on the buffers' device)."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
+    wd = float(weight_decay)
+
+    # ---- pass 1: squared-norm partials per bucket ----------------------
+    # sngm/msgd norm the decayed gradient (g + wd*w, inside the kernel);
+    # lars needs raw ||g|| and ||w|| per tensor instead
+    g_parts, w_parts = [], []
+    for pf, gf in zip(p_flats, g_flats):
+        if kind == "lars":
+            g_parts.append(_ops.chunk_sumsq(gf))
+            w_parts.append(_ops.chunk_sumsq(pf))
+        else:
+            g_parts.append(_ops.chunk_sumsq(gf, pf, wd=wd))
+
+    # per-segment and global sums, in the JAX leaf order
+    gsq_by_leaf = _leaf_values(g_parts, layout)
+    gnorm = torch.sqrt(sum(gsq_by_leaf))
+    wsq_by_leaf = _leaf_values(w_parts, layout) if kind == "lars" else None
+
+    # ---- coefficients --------------------------------------------------
+    lr = torch.as_tensor(lr, dtype=torch.float32).cpu()
+    cast_g_first = False
+    if kind == "sngm_global":
+        inv = 1.0 / (gnorm + eps)
+        a_chunks = [inv.reshape(1).expand(b.n_chunks).contiguous()
+                    for b in layout.buckets]
+        c = lr
+    elif kind == "sngm_per_tensor":
+        a_chunks = [
+            _per_chunk(b, [1.0 / (torch.sqrt(gsq_by_leaf[s.index]) + eps)
+                           for s in b.segments])
+            for b in layout.buckets]
+        c = lr
+    elif kind == "msgd":
+        a_chunks = [torch.ones(b.n_chunks, dtype=torch.float32,
+                               device=gnorm.device) for b in layout.buckets]
+        c = lr
+    else:  # lars
+        def local_lr(s):
+            wn = torch.sqrt(wsq_by_leaf[s.index])
+            gn = torch.sqrt(gsq_by_leaf[s.index])
+            local = trust * wn / (gn + wd * wn + eps)
+            return lr.to(wn.device) * torch.where(wn > 0, local, 1.0)
+        a_chunks = [_per_chunk(b, [local_lr(s) for s in b.segments])
+                    for b in layout.buckets]
+        c = torch.tensor(1.0, dtype=torch.float32)
+        cast_g_first = True
+
+    # ---- pass 2: fused momentum + apply per bucket ---------------------
+    usq_parts = [_ops.fused_update(pf, gf, uf, ac, c, beta=beta, wd=wd,
+                                   cast_g_first=cast_g_first, nesterov=nesterov)
+                 for pf, gf, uf, ac in zip(p_flats, g_flats, u_flats, a_chunks)]
+    unorm = torch.sqrt(sum(_leaf_values(usq_parts, layout)))
+    return {"grad_norm": gnorm, "lr": lr, "update_norm": unorm}

@@ -1,0 +1,269 @@
+"""Optimizers: SNGM (the paper, Algorithm 1) and its baselines.
+
+A port of ``repro.core.optim`` at kind level.  The JAX package builds
+these optimizers as gradient-transform chains and compiles the chain
+onto a kind of the multi-tensor engine (``core/transform.py``); the port
+builds the kinds directly (the chain algebra is ROADMAP.md Queue A
+item 11):
+
+    sngm   kind sngm_global or sngm_per_tensor  u = beta*u + g/||g||
+    sngd   sngm with beta = 0
+    msgd   kind msgd                             v = beta*v + g
+    lars   kind lars                             v = beta*v + lr*local*(g + wd*w)
+
+``fused=None`` runs the plain path (``_plain_kind_step``, the JAX
+package's ``_jnp_kind_step``); ``fused="multi_tensor"`` runs the engine
+in ``core/multi_tensor.py`` (2 kernel launches per step for sngm, msgd
+and nesterov sngm, 3 for lars), bitwise equal to the plain path.
+
+State forms: with ``fused="multi_tensor"``, ``init`` returns a resident
+``FlatOptState`` whose flat buffers own the parameters; an ``OptState``
+fed to the engine takes the per-step packing route, and a
+``FlatOptState`` fed to the plain path reads its views and returns an
+``OptState``.  ``TrainState`` is the unified state the train step
+threads: on the resident path ``params`` is None and the buffers are the
+single parameter copy.  A stepped resident state's buffers hold the new
+values (the kernels update them in place), so only the returned state
+may be used.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.multi_tensor import (FlatGrads, FlatOptState,
+                                           global_norm, init_flat_state,
+                                           leaf_sumsq, multi_tensor_step,
+                                           resident_step)
+from repro_torch.core.schedules import Schedule, make_schedule
+from repro_torch.kernels.multi_tensor.ref import weak_scalar
+
+Tree = Dict[str, torch.Tensor]
+NOT_PORTED = "is not ported yet (ROADMAP.md Queue A)"
+
+
+class OptState(NamedTuple):
+    step: int
+    momentum: Tree             # f32, mirrors params
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """init/step pair.  ``step(grads, state, params)`` returns
+    (new_params, new_state, stats); ``new_params`` is None on the
+    resident path, whose buffers own the parameters."""
+    name: str
+    init: Callable[[Tree], Any]
+    step: Callable[[Any, Any, Optional[Tree]], Tuple[Optional[Tree], Any, dict]]
+    kind: Optional[str] = None
+
+    def init_state(self, params: Tree) -> "TrainState":
+        return TrainState.wrap(params, self.init(params))
+
+    def step_state(self, grads, state: "TrainState") -> Tuple["TrainState", dict]:
+        new_p, new_s, stats = self.step(grads, state.opt_state, state.params)
+        return TrainState.wrap(new_p, new_s), stats
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainState:
+    """Parameters (or their resident flat-buffer owner) and optimizer
+    slots.  On the resident path ``params`` is None and
+    ``opt_state.p_flats`` are the only parameter copy."""
+    params: Optional[Tree]
+    opt_state: Any
+
+    @classmethod
+    def wrap(cls, params: Optional[Tree], opt_state: Any) -> "TrainState":
+        """A resident ``FlatOptState`` owns the parameters (the dict is
+        dropped); any other state form carries them."""
+        if isinstance(opt_state, FlatOptState):
+            return cls(params=None, opt_state=opt_state)
+        return cls(params=params, opt_state=opt_state)
+
+    @property
+    def step(self) -> int:
+        return self.opt_state.step
+
+    @property
+    def params_view(self) -> Tree:
+        """The parameter dict: ``params`` itself, or views into the
+        resident flat buffers."""
+        if self.params is not None:
+            return self.params
+        return self.opt_state.params
+
+
+def _init(params: Tree) -> OptState:
+    # momentum is always fp32, independent of parameter storage dtype
+    return OptState(step=0, momentum={k: torch.zeros(v.shape, dtype=torch.float32,
+                                                     device=v.device)
+                                      for k, v in params.items()})
+
+
+def _decayed(grads: Tree, params: Tree, weight_decay: float) -> Tree:
+    """PyTorch-SGD-style coupled weight decay: g <- g + wd * w (paper §5)."""
+    if weight_decay == 0.0:
+        return grads
+    return {k: g + weak_scalar(weight_decay, params[k].dtype) * params[k]
+            for k, g in grads.items()}
+
+
+def _plain_kind_step(kind: str, grads: Tree, momentum: Tree, params: Tree, *,
+                     lr, beta: float, weight_decay: float, eps: float,
+                     trust: float, nesterov: bool = False):
+    """The plain step for one engine kind, expression for expression the
+    JAX package's ``_jnp_kind_step``.  Returns (new_params, new_momentum,
+    stats).  ``nesterov`` applies the update expression a second time
+    with the fresh momentum; the momentum state stays the plain trace."""
+    lr = torch.as_tensor(lr, dtype=torch.float32).cpu()
+    if kind == "lars":
+        def upd(v, g, w):
+            g = g.float()
+            wn = torch.sqrt(leaf_sumsq(w))
+            gn = torch.sqrt(leaf_sumsq(g))
+            local = trust * wn / (gn + weight_decay * wn + eps)
+            # scalars (biases/norm scales, ||w|| ~ 0 at init) fall back to 1
+            local = torch.where(wn > 0, local, 1.0)
+            return beta * v + lr * local * (g + weak_scalar(weight_decay, w.dtype) * w)
+
+        new_u = {k: upd(momentum[k], grads[k], params[k]) for k in params}
+        out_u = ({k: upd(new_u[k], grads[k], params[k]) for k in params}
+                 if nesterov else new_u)
+        new_p = {k: (w - out_u[k]).to(w.dtype) for k, w in params.items()}
+        gnorm = global_norm(grads)
+    else:
+        g = _decayed(grads, params, weight_decay)
+        gnorm = global_norm(g)
+        if kind == "sngm_global":
+            inv = 1.0 / (gnorm + eps)
+
+            def upd(u, gi):
+                return beta * u + gi.float() * inv
+        elif kind == "sngm_per_tensor":
+            def upd(u, gi):
+                n = torch.sqrt(leaf_sumsq(gi))
+                return beta * u + gi.float() * (1.0 / (n + eps))
+        else:  # msgd
+            def upd(v, gi):
+                return beta * v + gi.float()
+        new_u = {k: upd(momentum[k], g[k]) for k in params}
+        out_u = {k: upd(new_u[k], g[k]) for k in params} if nesterov else new_u
+        new_p = {k: (w - lr * out_u[k]).to(w.dtype) for k, w in params.items()}
+    stats = {"grad_norm": gnorm, "lr": lr, "update_norm": global_norm(out_u)}
+    return new_p, new_u, stats
+
+
+def _kind_optimizer(kind: str, schedule: Schedule, *, beta: float,
+                    weight_decay: float = 0.0, eps: float = 1e-12,
+                    trust: float = 0.001, nesterov: bool = False,
+                    fused: Optional[str] = None,
+                    name: Optional[str] = None) -> Optimizer:
+    """The Optimizer for one engine kind in the requested execution mode
+    (``fused=None`` or ``"multi_tensor"``)."""
+    if fused not in (None, "multi_tensor"):
+        raise NotImplementedError(f"fused={fused!r} {NOT_PORTED}; use "
+                                  f"fused='multi_tensor' or None")
+    kw = dict(beta=beta, weight_decay=weight_decay, eps=eps, trust=trust,
+              nesterov=nesterov)
+
+    @torch.no_grad()
+    def step_fn(grads, state, params):
+        lr = schedule(state.step)
+        if fused == "multi_tensor" and isinstance(state, FlatOptState):
+            new_state, stats = resident_step(kind, grads, state, lr=lr, **kw)
+            return None, new_state, stats
+        if isinstance(grads, FlatGrads):
+            grads = grads.tree
+        if params is None:
+            # a resident state on the plain path: read its buffer views
+            params = state.params
+        if fused == "multi_tensor":
+            new_p, new_u, stats = multi_tensor_step(
+                kind, params, grads, state.momentum, lr=lr, **kw)
+        else:
+            new_p, new_u, stats = _plain_kind_step(
+                kind, grads, state.momentum, params, lr=lr, **kw)
+        return new_p, OptState(state.step + 1, new_u), stats
+
+    init = init_flat_state if fused == "multi_tensor" else _init
+    return Optimizer(name or kind, init, step_fn, kind=kind)
+
+
+# ---------------------------------------------------------------------------
+# the optimizers
+# ---------------------------------------------------------------------------
+
+def sngm(schedule: Schedule, beta: float = 0.9, weight_decay: float = 0.0,
+         eps: float = 1e-12, norm_mode: str = "global", nesterov: bool = False,
+         ema_decay: Optional[float] = None,
+         fused: Optional[str] = None) -> Optimizer:
+    """Stochastic Normalized Gradient descent with Momentum (Algorithm 1).
+
+        u_{t+1} = beta * u_t + g_t / ||g_t||
+        w_{t+1} = w_t - eta_t * u_{t+1}
+
+    ``norm_mode``: "global" (the paper: one norm over the whole gradient)
+    or "per_tensor" (each tensor normalized by its own norm).  ``nesterov``
+    applies look-ahead momentum; the engine fuses it into the update
+    pass, so the launch count is unchanged."""
+    if norm_mode not in ("global", "per_tensor"):
+        raise ValueError(norm_mode)
+    if ema_decay is not None:
+        raise NotImplementedError(f"ema_decay {NOT_PORTED}")
+    kind = "sngm_global" if norm_mode == "global" else "sngm_per_tensor"
+    return _kind_optimizer(kind, schedule, beta=beta, weight_decay=weight_decay,
+                           eps=eps, nesterov=nesterov, fused=fused,
+                           name=f"sngm[{norm_mode}]")
+
+
+def sngd(schedule: Schedule, weight_decay: float = 0.0, eps: float = 1e-12,
+         norm_mode: str = "global", fused: Optional[str] = None) -> Optimizer:
+    """Stochastic normalized gradient descent = SNGM with beta = 0."""
+    opt = sngm(schedule, beta=0.0, weight_decay=weight_decay, eps=eps,
+               norm_mode=norm_mode, fused=fused)
+    return dataclasses.replace(opt, name="sngd")
+
+
+def msgd(schedule: Schedule, beta: float = 0.9, weight_decay: float = 0.0,
+         nesterov: bool = False, fused: Optional[str] = None) -> Optimizer:
+    """Momentum SGD:  v_{t+1} = beta v_t + g_t ;  w_{t+1} = w_t - eta v_{t+1}."""
+    return _kind_optimizer("msgd", schedule, beta=beta,
+                           weight_decay=weight_decay, nesterov=nesterov,
+                           fused=fused, name="msgd")
+
+
+def lars(schedule: Schedule, beta: float = 0.9, weight_decay: float = 0.0,
+         trust: float = 0.001, eps: float = 1e-12,
+         fused: Optional[str] = None) -> Optimizer:
+    """Layer-wise Adaptive Rate Scaling (pytorch-lars, as the paper used):
+
+        local_lr = trust * ||w|| / (||g|| + wd * ||w|| + eps)   per tensor
+        v = beta v + eta * local_lr * (g + wd * w)
+        w = w - v
+    """
+    return _kind_optimizer("lars", schedule, beta=beta,
+                           weight_decay=weight_decay, trust=trust, eps=eps,
+                           fused=fused, name="lars")
+
+
+OPTIMIZERS = {"sngm": sngm, "sngd": sngd, "msgd": msgd, "lars": lars}
+
+
+def optimizer_names() -> Tuple[str, ...]:
+    return tuple(sorted(OPTIMIZERS))
+
+
+def make_optimizer(name: str, schedule=None, **kw) -> Optimizer:
+    """``make_optimizer("sngm", schedule, beta=0.9, ...)``; ``schedule``
+    may be a callable or a ``{"name", "kwargs"}`` spec."""
+    if name not in OPTIMIZERS:
+        raise KeyError(f"unknown optimizer {name!r}; available "
+                       f"{optimizer_names()} (the others {NOT_PORTED})")
+    if schedule is None:
+        raise TypeError("make_optimizer(name, schedule, ...) requires a schedule")
+    if isinstance(schedule, dict):
+        schedule = make_schedule(schedule)
+    return OPTIMIZERS[name](schedule, **kw)

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0}
+LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0, "chunk_sumsq": 0,
+                            "fused_update": 0}
 
 
 def record_launch(name: str) -> None:

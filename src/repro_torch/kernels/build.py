@@ -1,10 +1,12 @@
-"""Build CUDA sources into a shared library with a plain C interface.
+"""Build CUDA sources into shared libraries with a plain C interface.
 
 nvcc compiles each library for ``sm_90a`` (Hopper) at first use, into
 ``build/repro_torch/`` at the repository root, named by a hash of its
-sources and flags so that an edited source is rebuilt.  The library is
+sources and flags so that an edited source is rebuilt.  A library is
 loaded with ``ctypes``; nothing here includes PyTorch's headers, which
-keeps a build to seconds.  Nothing is built when a module is imported.
+keeps a build to seconds.  ``build_libraries`` starts one nvcc per
+library, all at once, and waits for them together.  Nothing is built
+when a module is imported.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import subprocess
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Mapping, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,31 +47,52 @@ def nvcc() -> str:
     return found
 
 
-def build_library(name: str, sources: Sequence[Path]) -> Library:
-    """Compile ``sources`` into lib<name>-<hash>.so once per process."""
-    if name in _LOADED:
-        return _LOADED[name]
+def _target(name: str, sources: Sequence[Path]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(Path(src).read_bytes())
-    out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    log = out.with_suffix(".log")
-    t0 = time.perf_counter()
-    built = not out.exists()
-    if built:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    ptxas = [line.strip() for line in
-             (log.read_text().splitlines() if log.exists() else [])
-             if "entry function" in line or "registers" in line
-             or "spill" in line]
-    _LOADED[name] = Library(lib, out, time.perf_counter() - t0, built, ptxas)
-    return _LOADED[name]
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_libraries(specs: Mapping[str, Sequence[Path]]) -> Dict[str, Library]:
+    """Compile each ``name -> sources`` into lib<name>-<hash>.so once per
+    process, running the nvcc processes side by side."""
+    started = {}
+    for name, sources in specs.items():
+        if name in _LOADED:
+            continue
+        out = _target(name, sources)
+        proc = tmp = None
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+        started[name] = (out, tmp, proc, time.perf_counter())
+    errors = []
+    for name, (out, tmp, proc, t0) in started.items():
+        log = out.with_suffix(".log")
+        if proc is not None:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name} ({proc.returncode}):\n"
+                              f"{' '.join(proc.args)}\n{stdout}{stderr}")
+                continue
+            log.write_text(stdout + stderr)
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        ptxas = [line.strip() for line in
+                 (log.read_text().splitlines() if log.exists() else [])
+                 if "entry function" in line or "registers" in line
+                 or "spill" in line]
+        _LOADED[name] = Library(lib, out, time.perf_counter() - t0,
+                                proc is not None, ptxas)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {name: _LOADED[name] for name in specs}
+
+
+def build_library(name: str, sources: Sequence[Path]) -> Library:
+    """Compile ``sources`` into lib<name>-<hash>.so once per process."""
+    return build_libraries({name: sources})[name]

@@ -219,10 +219,13 @@ def _paged_valid(pos, T: int, window: int):
 
 
 def gqa_attention(p, x, cfg: ModelConfig, *, local: bool, pos, cache=None,
-                  causal: bool = True, paged_kernel: bool = True):
+                  causal: bool = True, paged_kernel: bool = True,
+                  build_cache: bool = True):
     """Modes:
-      * full-seq (prefill): cache=None, pos (B,S) absolute positions;
-        returns the unrotated cache {"k", "v", "slot_pos"}.
+      * full-seq (train/prefill): cache=None, pos (B,S) absolute
+        positions; returns the unrotated cache {"k", "v", "slot_pos"},
+        or None with ``build_cache=False`` (training keeps none, and
+        needs no ring rotation when S exceeds the window).
       * paged decode: cache={"kp","vp","bt"}, x (B,1,d), pos (B,); the
         pools are written in place and the same dict is returned.
     Returns (out, cache)."""
@@ -247,7 +250,7 @@ def gqa_attention(p, x, cfg: ModelConfig, *, local: bool, pos, cache=None,
     if cache is None:                                   # full sequence
         o = _sdpa_seq(q, k, v, causal, window, cfg.attn_softcap, scale)
         new_cache = (ring_cache({"k": k, "v": v}, x.shape[1], window)
-                     if causal else None)
+                     if causal and build_cache else None)
         return _proj_out(o, p["wo"].to(cdt)), new_cache
 
     if "kp" not in cache:

@@ -2,9 +2,10 @@
 
 The JAX package's ``Runtime`` carries a mesh; the port runs on one
 device and carries that device instead, plus the choice of paged
-decode attention.  Entry points run on CUDA unless the caller asks for
-the CPU: ``resolve_device`` raises when CUDA is asked for (the default)
-and no card is present, and never falls back to the CPU.
+decode attention and of per-block remat in training.  Entry points run
+on CUDA unless the caller asks for the CPU: ``resolve_device`` raises
+when CUDA is asked for (the default) and no card is present, and never
+falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -23,6 +24,10 @@ class Runtime:
     # mirror of the JAX package's CPU path, which the chip smoke run
     # compares the kernel path against
     paged_kernel: bool = True
+    # train mode: checkpoint each block (torch.utils.checkpoint), so the
+    # backward pass keeps one block's internals at a time, as the JAX
+    # package's Runtime.remat does with jax.checkpoint
+    remat: bool = False
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
@@ -42,8 +47,9 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
     return dev
 
 
-def make_runtime(device: Union[str, torch.device, None] = None) -> Runtime:
-    return Runtime(device=resolve_device(device))
+def make_runtime(device: Union[str, torch.device, None] = None, *,
+                 remat: bool = False) -> Runtime:
+    return Runtime(device=resolve_device(device), remat=remat)
 
 
 CPU_RUNTIME = Runtime(device=torch.device("cpu"))

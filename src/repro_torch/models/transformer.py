@@ -1,11 +1,15 @@
 """Model assembly for the dense decoder stacks, built from the layers.
 
-A port of ``repro.models.transformer`` for serving: ``model_defs``,
-``block_apply`` (attention plus dense FFN) and ``forward`` in
-``prefill`` and ``decode`` modes.  The JAX package scans the stacked
-layer period with ``lax.scan``; here a Python loop walks the stacked
-leading dim.  MoE, MLA, SSM and encoder-decoder stacks, and the train
-mode, are not ported yet and raise ``NotImplementedError``.
+A port of ``repro.models.transformer``: ``model_defs``, ``block_apply``
+(attention plus dense FFN) and ``forward`` in ``train``, ``prefill``
+and ``decode`` modes.  The JAX package scans the stacked layer period
+with ``lax.scan``; here a Python loop walks the stacked leading dim,
+split once with ``unbind`` so that the backward pass stacks each leaf's
+gradient in one piece.  Per-block remat (``Runtime.remat``) is
+``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``; its
+sqrt-remat grouping of periods is not ported.  MoE, MLA, SSM and
+encoder-decoder stacks are not ported yet and raise
+``NotImplementedError``.
 
 Parameters are the flat ``{dotted.path: Tensor}`` dict of
 ``models.param`` ("blocks.L0.attn.wq" has shape (n_periods, d, H, hd)).
@@ -19,6 +23,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, layer_pattern
 from repro_torch.models import layers
@@ -97,13 +102,15 @@ def _sub(p: Dict[str, torch.Tensor], name: str) -> Dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 def block_apply(p, spec: LayerSpec, h, cfg: ModelConfig, rt: Runtime, *,
-                pos, cache=None):
-    """Returns (h, cache): the dense prefill cache of this layer, or the
-    paged cache dict it was given (updated in place)."""
+                pos, cache=None, build_cache: bool = True):
+    """Returns (h, cache): the dense prefill cache of this layer (None
+    without ``build_cache``), or the paged cache dict it was given
+    (updated in place)."""
     xin = layers.rmsnorm(p["attn_norm.scale"], h, cfg.norm_eps)
     a, c = layers.gqa_attention(_sub(p, "attn"), xin, cfg,
                                 local=(spec.mixer == "attn_local"), pos=pos,
-                                cache=cache, paged_kernel=rt.paged_kernel)
+                                cache=cache, paged_kernel=rt.paged_kernel,
+                                build_cache=build_cache)
     h = h + a.to(h.dtype)
     xin = layers.rmsnorm(p["ffn_norm.scale"], h, cfg.norm_eps)
     h = h + layers.mlp(_sub(p, "ffn"), xin, cfg).to(h.dtype)
@@ -116,17 +123,19 @@ def block_apply(p, spec: LayerSpec, h, cfg: ModelConfig, rt: Runtime, *,
 
 def forward(params, cfg: ModelConfig, rt: Runtime, tokens, *,
             mode: str, cache=None, pos=None, last_pos=None):
-    """mode: "prefill" | "decode".
+    """mode: "train" | "prefill" | "decode".
 
+    train:   tokens (B,S)            -> (final hidden (B,S,d), None)
     prefill: tokens (B,S)            -> (logits (B,1,V), dense cache)
     decode:  tokens (B,1), pos (B,)  -> (logits (B,1,V), paged cache)
 
     ``last_pos`` (B,), prefill only: per-row position whose logits to
     return instead of the last one (bucket-padded batched prefill).
+    Train mode returns the hidden states: the loss projects them onto
+    the vocabulary in sequence chunks (``training.loss``).
     """
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"forward mode {mode!r} is not ported yet "
-                                  f"(ROADMAP.md Queue A)")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"forward mode {mode!r}")
     check_supported(cfg)
     _, period, n_periods = layer_pattern(cfg)
     B, S = tokens.shape
@@ -144,22 +153,33 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens, *,
                                 device=tokens.device).expand(B, S)
 
     per_layer: Dict[str, list] = {}
+    stacked = {k: v.unbind(0) for k, v in params.items()
+               if k.startswith("blocks.")}
+    remat = rt.remat and mode == "train"
     for i in range(n_periods):
         for j, spec in enumerate(period):
             pre = f"blocks.L{j}."
-            p = {k[len(pre):]: v[i] for k, v in params.items()
+            p = {k[len(pre):]: v[i] for k, v in stacked.items()
                  if k.startswith(pre)}
             c_in: Optional[dict] = None
             if mode == "decode":
                 c_in = {n: cache[f"{pre}attn.{n}"][i] for n in ("kp", "vp", "bt")}
-            h, c = block_apply(p, spec, h, cfg, rt, pos=rope_pos, cache=c_in)
+            if remat:   # per-block remat: one block's internals live in bwd
+                h = checkpoint(lambda pp, hh, spec=spec: block_apply(
+                    pp, spec, hh, cfg, rt, pos=rope_pos, build_cache=False)[0],
+                    p, h, use_reentrant=False)
+                continue
+            h, c = block_apply(p, spec, h, cfg, rt, pos=rope_pos, cache=c_in,
+                               build_cache=mode != "train")
             if mode == "prefill":
                 for n, t in c.items():
                     per_layer.setdefault(f"{pre}attn.{n}", []).append(t)
 
+    h = layers.rmsnorm(params["final_norm.scale"], h, cfg.norm_eps)
+    if mode == "train":
+        return h, None
     new_cache = cache if mode == "decode" else \
         {k: torch.stack(v) for k, v in per_layer.items()}
-    h = layers.rmsnorm(params["final_norm.scale"], h, cfg.norm_eps)
     if mode == "prefill":
         h = (h[:, -1:, :] if last_pos is None
              else h[torch.arange(B, device=h.device), last_pos.long()][:, None])
