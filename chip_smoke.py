@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's two paths at the full published widths of gemma-2b
+Drives the port's paths at the full published widths of gemma-2b
 (random weights from a seed) on one NVIDIA GPU: paged serving, with
-decode attention in a hand-written CUDA kernel, and SNGM training, with
-the two multi-tensor optimizer passes in hand-written CUDA kernels.
-Holds every kernel against its plain PyTorch version.
+decode attention in a hand-written CUDA kernel; training with SNGM and
+with LAMB on the multi-tensor engine, and with SNGM and LARS on the
+per-leaf path, every optimizer pass a hand-written CUDA kernel.  Holds
+every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -13,10 +14,10 @@ Phases, each raising on failure:
   1. the card (nvidia-smi name and power limit), versions, the build
      time of each kernel library (one nvcc per library, run side by
      side) and their ptxas register/spill lines;
-  2. the kernel against its plain version on the card, fp32 and bf16,
-     over head-group, kv-head, head-dim and block-size grids, window and
-     softcap, frontiers on and inside blocks, an inactive row, and the
-     gemma-2b decode shape;
+  2. the paged kernel against its plain version on the card, fp32 and
+     bf16, over head-group, kv-head, head-dim and block-size grids,
+     window and softcap, frontiers on and inside blocks, an inactive
+     row, and the gemma-2b decode shape;
   3. full-width serving: 16 requests arriving two per scheduler round on
      8 slots, four prompts sharing a 256-token prefix, a pool small
      enough to preempt; the kernel's launch count must be
@@ -29,16 +30,31 @@ Phases, each raising on failure:
      bitwise: fp32 and bf16, wd 0 and 1e-4, both cast orders, nesterov,
      per-row coefficients, signed zeros, and the full gemma-2b buffer;
      then their times on that buffer against their byte bounds;
-  7. full-width training, the slice's main path: 4 SNGM steps of
-     gemma-2b through ``repro_torch.launch.train``'s own functions
-     (batch 8 x 512 tokens, 2 micro-batches); exactly one launch of each
-     optimizer kernel per step; loss, grad_norm, step time, tokens/s,
-     peak memory, and the optimizer step's share of a step;
-  8. the port's ``fused=None`` against ``fused="multi_tensor"`` from one
+  7. ``adam_update`` and ``scale_apply`` (LAMB) against their plain
+     versions, bitwise: fp32 and bf16, wd 0 and 1e-4, signed zeros, a
+     zero-padded tail, per-row coefficients, and the full gemma-2b
+     buffer; then their times there;
+  8. ``fused_sngm_update``, ``lars_sqnorm`` and ``lars_update`` (the
+     per-leaf path) against their plain versions, bitwise: ragged
+     leaves of 1, 1023, 1025 and 32,769 elements, fp32 and bf16, signed
+     zeros, wd 0 and 1e-4, and the 11 gemma-2b leaves; then their times
+     over those leaves, ``lars_sqnorm`` beside ``vector_norm``;
+  9. full-width training through ``repro_torch.launch.train``'s own
+     functions (batch 8 x 512 tokens, 2 micro-batches, wd 1e-4), each
+     path with the launch counts set to 0 just before it and read just
+     after: 4 SNGM steps on the engine (1 ``chunk_sumsq`` + 1
+     ``fused_update`` a step), 4 LAMB steps on the engine at lr 0.01 (1
+     ``adam_update`` + 1 ``scale_apply``), 3 SNGM steps per leaf (11
+     ``fused_sngm_update``) and 3 LARS steps per leaf (22
+     ``lars_sqnorm`` + 11 ``lars_update``); loss, grad_norm, step time,
+     tokens/s, peak memory, the optimizer step's share of a step and a
+     profiled step;
+ 10. the port's ``fused=None`` against ``fused="multi_tensor"`` (every
+     kind and LAMB) and ``fused="per_leaf"`` (sngm, lars) from one
      state and the same full-width gradients, bitwise over 3 steps,
-     every kind, fp32 and bf16 (depth cut to 2 layers to fit both
-     states and the plain path's temporaries beside each other);
-  9. one JSON line of kernel timings against their bounds, then the
+     fp32 and bf16 (depth cut to 2 layers to fit both states and the
+     plain path's temporaries beside each other);
+ 11. one JSON line of kernel timings against their bounds, then the
      JSON result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside
@@ -52,6 +68,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -383,7 +400,9 @@ def phase_timing(torch, ops, ref, launches, err, n_layers, step_ms):
 
 MT_SOURCE = "src/repro_torch/kernels/multi_tensor/csrc/multi_tensor.cu"
 MT_REPLACES = {"chunk_sumsq": "src/repro/kernels/multi_tensor/kernel.py:156",
-               "fused_update": "src/repro/kernels/multi_tensor/kernel.py:211"}
+               "fused_update": "src/repro/kernels/multi_tensor/kernel.py:211",
+               "scale_apply": "src/repro/kernels/multi_tensor/kernel.py:273",
+               "adam_update": "src/repro/kernels/multi_tensor/kernel.py:340"}
 
 
 def mt_inputs(torch, n, dtype, seed, signed_zeros=False):
@@ -438,15 +457,17 @@ def mt_compare(torch, ops, ref, p, g, u, a, errs, rows=1 << 16, **kw):
     torch.cuda.synchronize()
 
 
-def gemma_buffer_elems(torch, cfg):
-    """Elements of the one fp32 bucket that gemma-2b's params pack into."""
+def gemma_layout(torch, cfg):
+    """The layout of gemma-2b's params: one fp32 bucket."""
     from repro_torch.core.multi_tensor import build_layout
     from repro_torch.models import model_defs
     from repro_torch.models.param import flatten_defs
     meta = {k: torch.empty(d.shape, dtype=d.dtype, device="meta")
             for k, d in flatten_defs(model_defs(cfg)).items()}
-    (bucket,) = build_layout(meta).buckets
-    return bucket.n_elems
+    layout = build_layout(meta)
+    if len(layout.buckets) != 1:
+        raise AssertionError(f"{len(layout.buckets)} buckets, expected one")
+    return layout
 
 
 def phase_mt_kernels(torch, ops, ref, cfg):
@@ -461,7 +482,7 @@ def phase_mt_kernels(torch, ops, ref, cfg):
                         mt_compare(torch, ops, ref, p, g, u, a, errs, beta=0.9, wd=wd,
                                    cast_g_first=cast_g_first, nesterov=nesterov)
                         n_cases += 1
-    n = gemma_buffer_elems(torch, cfg)
+    n = gemma_layout(torch, cfg).buckets[0].n_elems
     p, g, u, a = mt_inputs(torch, n, "float32", seed=2)
     a.fill_(1.0 / 300.0)               # SNGM's one global coefficient
     mt_compare(torch, ops, ref, p, g, u, a, errs, beta=0.9, wd=1e-4)
@@ -533,22 +554,295 @@ def mt_row(name, errs, ms, plain_ms, nbytes, flops):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: full-width training, the slice's main path
+# phase 7: LAMB's two kernels against plain, and their times
 # ---------------------------------------------------------------------------
 
-TRAIN_ARGV = ["--arch", ARCH, "--steps", "4", "--batch", "8", "--seq", "512",
-              "--n-micro", "2", "--optimizer", "sngm", "--fused", "multi_tensor",
-              "--weight-decay", "1e-4", "--log-every", "1", "--device", "cuda",
-              "--seed", "0"]
+LAMB = dict(b1=0.9, b2=0.999, eps=1e-6)
 
 
-def phase_train(torch, kernels, train_mod):
-    args = train_mod.parse_args(TRAIN_ARGV)
+def same_or_raise(torch, name, pairs, errs, where):
+    """Every (kernel, plain) pair bitwise equal; folds the largest absolute
+    difference into ``errs[name]`` (0.0 unless it raises)."""
+    for k, r in pairs:
+        errs[name] = max(errs[name], (k.float() - r.float()).abs().max().item())
+        if not same_bits(torch, k, r):
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"({where}): max abs diff {errs[name]:.3g}")
+
+
+def lamb_compare(torch, ops, ref, p, g, moments, a, errs, wd, rows=1 << 16):
+    """adam_update then scale_apply against their plain versions,
+    bitwise, ``rows`` rows at a time.  ``moments(sl)`` gives the starting
+    m and v of a slice (made anew, so the full buffer needs no copies)."""
+    from repro_torch.core.multi_tensor import bias_corrections
+    bc1, bc2 = bias_corrections(2, LAMB["b1"], LAMB["b2"])
+    c = torch.tensor(0.01)
+    km, kv = moments(slice(None))
+    u, usq, psq, gsq = ops.adam_update(p, g, km, kv, bc1, bc2, wd=wd, **LAMB)
+    step = rows * 1024
+    where = f"{p.dtype}, wd {wd}, {p.numel():,} elements"
+    for lo in range(0, p.numel(), step):
+        sl = slice(lo, min(lo + step, p.numel()))
+        rl = slice(lo // 1024, sl.stop // 1024)
+        m0, v0 = moments(sl)
+        want = ref.adam_update_ref(p[sl], g[sl], m0, v0, bc1, bc2, wd=wd, **LAMB)
+        same_or_raise(torch, "adam_update", zip(
+            (km[sl], kv[sl], u[sl], usq[rl], psq[rl], gsq[rl]), want), errs, where)
+    del km, kv
+    kp = p.clone()
+    kq = ops.scale_apply(kp, u, a, c)
+    for lo in range(0, p.numel(), step):
+        sl = slice(lo, min(lo + step, p.numel()))
+        rl = slice(lo // 1024, sl.stop // 1024)
+        same_or_raise(torch, "scale_apply", zip(
+            (kp[sl], kq[rl]), ref.scale_apply_ref(p[sl], u[sl], a[rl], c)),
+            errs, where)
+    torch.cuda.synchronize()
+
+
+def derived_moments(g):
+    """Starting Adam moments made from g, slice by slice (v > 0)."""
+    def moments(sl):
+        gs = g[sl].float()
+        return gs * 0.1, gs * gs * 0.01 + 1e-8
+    return moments
+
+
+def phase_lamb_kernels(torch, ops, ref, p, g):
+    """Small cases (fp32/bf16, wd 0/1e-4, signed zeros, a zero-padded
+    tail, per-row coefficients), then the full gemma-2b fp32 buffer."""
+    errs = {"adam_update": 0.0, "scale_apply": 0.0}
+    n_cases = 0
+    for dtype in ("float32", "bfloat16"):
+        for seed, signed_zeros in ((0, False), (1, True)):
+            sp, sg, su, sa = mt_inputs(torch, 4 * ref.TILE, dtype, seed, signed_zeros)
+            sv = su * su * 0.01
+            if not signed_zeros:                  # a segment's zero padding
+                for t in (sp, sg, su, sv):
+                    t[-3 * 1024 - 100:] = 0.0
+            for wd in (0.0, 1e-4):
+                lamb_compare(torch, ops, ref, sp, sg,
+                             lambda sl: (su[sl].clone(), sv[sl].clone()), sa,
+                             errs, wd)
+                n_cases += 1
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    a = torch.rand(p.numel() // 1024, device="cuda", generator=gen) + 0.5
+    lamb_compare(torch, ops, ref, p, g, derived_moments(g), a, errs, 1e-4)
+    log(f"adam_update and scale_apply equal their plain versions bitwise in "
+        f"{n_cases} cases of 262,144 elements (fp32/bf16, wd 0/1e-4, signed "
+        f"zeros, a zero-padded tail, per-row coefficients) and on the full "
+        f"gemma-2b fp32 buffer of {p.numel():,} elements (wd 1e-4); max abs "
+        f"diff {errs}")
+    return errs
+
+
+def parts(n_el, k):
+    """``k`` slices covering [0, n_el) on row boundaries."""
+    step = -(-n_el // (k * 1024)) * 1024
+    return [slice(lo, min(lo + step, n_el)) for lo in range(0, n_el, step)]
+
+
+def phase_lamb_timing(torch, ops, ref, p, g, errs, n=20):
+    """Times on the full gemma-2b fp32 buffer as a LAMB step runs them."""
+    from repro_torch.core.multi_tensor import bias_corrections
+    n_el, n_rows = p.numel(), p.numel() // 1024
+    m, v = derived_moments(g)(slice(None))
+    bc1, bc2 = bias_corrections(1, LAMB["b1"], LAMB["b2"])
+    adam = lambda: ops.adam_update(p, g, m, v, bc1, bc2, wd=1e-4, **LAMB)  # noqa: E731
+    # the plain versions' temporaries on the whole buffer would not fit
+    # beside it, so each plain call walks it in 8 slices of rows
+    slices = parts(n_el, 8)
+    ms = time_calls(torch, adam, n)
+    plain_ms = time_calls(torch, lambda: [ref.adam_update_ref(
+        p[sl], g[sl], m[sl], v[sl], bc1, bc2, wd=1e-4, **LAMB) for sl in slices], 5)
+    ms2 = time_calls(torch, adam, n)
+    rows = {"adam_update": mt_row("adam_update", errs, ms, plain_ms,
+                                  28 * n_el + 12 * n_rows, 22 * n_el)}
+    log(f"adam_update on {n_el:,} fp32 elements: kernel {ms:.3f} / {ms2:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {rows['adam_update']['bound_ms']:.3f} ms "
+        f"by bytes (reads p, g, m, v; writes m, v, u); no single PyTorch call "
+        f"computes it")
+    u = adam()[0]
+    del m, v
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    a = torch.rand(n_rows, device="cuda", generator=gen) + 0.5
+    c = torch.tensor(0.01)
+    scale = lambda: ops.scale_apply(p, u, a, c)  # noqa: E731
+    ms = time_calls(torch, scale, n)
+    plain_ms = time_calls(torch, lambda: [ref.scale_apply_ref(
+        p[sl], u[sl], a[sl.start // 1024:sl.stop // 1024], c) for sl in slices], 5)
+    ms2 = time_calls(torch, scale, n)
+    rows["scale_apply"] = mt_row("scale_apply", errs, ms, plain_ms,
+                                 12 * n_el + 8 * n_rows, 5 * n_el)
+    log(f"scale_apply on {n_el:,} fp32 elements: kernel {ms:.3f} / {ms2:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {rows['scale_apply']['bound_ms']:.3f} ms "
+        f"by bytes (reads p, u; writes p); no single PyTorch call computes it")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the per-leaf kernels against plain, and their times
+# ---------------------------------------------------------------------------
+
+SNGM_SOURCE = "src/repro_torch/kernels/fused_sngm/csrc/fused_sngm.cu"
+LARS_SOURCE = "src/repro_torch/kernels/fused_lars/csrc/fused_lars.cu"
+PL_REPLACES = {"fused_sngm_update": "src/repro/kernels/fused_sngm/kernel.py:41",
+               "lars_sqnorm": "src/repro/kernels/fused_lars/kernel.py:37",
+               "lars_update": "src/repro/kernels/fused_lars/kernel.py:64"}
+LEAF_LENGTHS = (1, 1023, 1025, 32769)
+
+
+def per_leaf_compare(torch, sngm, lars, p, g, u, errs, where, wds=(0.0, 1e-4)):
+    """One leaf through each per-leaf kernel against its plain version,
+    bitwise; the kernels write into clones."""
+    inv = torch.tensor(1.0 / 300.0, device="cuda")
+    lr = torch.tensor(1.6)
+    kp, ku = p.clone(), u.clone()
+    sngm.ops.fused_sngm_update(kp, g, ku, inv, lr, beta=0.9)
+    same_or_raise(torch, "fused_sngm_update", zip(
+        (kp, ku), sngm.ref.sngm_update_ref(p, g, u, inv, lr, beta=0.9)),
+        errs, where)
+    del kp, ku
+    for x in (p, g):
+        same_or_raise(torch, "lars_sqnorm", [(lars.ops.lars_sqnorm(x),
+                                              lars.ref.lars_sqnorm_ref(x))],
+                      errs, where)
+    a = torch.tensor(1.6 * 0.0021, device="cuda")
+    for wd in wds:
+        kw_, kv = p.clone(), u.clone()
+        lars.ops.fused_lars_update(kw_, g, kv, a, beta=0.9, wd=wd)
+        same_or_raise(torch, "lars_update", zip(
+            (kw_, kv), lars.ref.lars_update_ref(p, g, u, a, beta=0.9, wd=wd)),
+            errs, f"{where}, wd {wd}")
+    torch.cuda.synchronize()
+
+
+def phase_per_leaf_kernels(torch, sngm, lars, p, g, layout):
+    """Ragged leaves (fp32/bf16, signed zeros, wd 0/1e-4), then the 11
+    gemma-2b leaves as views into the full buffers.  Returns the leaves
+    (params, grads, f32 momentum) for the timings."""
+    from repro_torch.core.multi_tensor import unflatten
+    errs = {"fused_sngm_update": 0.0, "lars_sqnorm": 0.0, "lars_update": 0.0}
+    for dtype in ("float32", "bfloat16"):
+        for n in LEAF_LENGTHS:
+            lp, lg, lu, _ = mt_inputs(torch, 64 * 1024, dtype, n, signed_zeros=True)
+            per_leaf_compare(torch, sngm, lars, lp[:n], lg[:n], lu[:n], errs,
+                             f"{dtype}, {n} elements")
+    u = (g * 0.01).float()
+    leaves = [unflatten([x], layout) for x in (p, g, u)]
+    for k in layout.paths:
+        per_leaf_compare(torch, sngm, lars, *(t[k] for t in leaves), errs,
+                         f"gemma-2b leaf {k} {tuple(leaves[0][k].shape)}",
+                         wds=(1e-4,))
+    log(f"fused_sngm_update, lars_sqnorm and lars_update equal their plain "
+        f"versions bitwise on leaves of {', '.join(map(str, LEAF_LENGTHS))} "
+        f"elements (fp32/bf16, signed zeros, wd 0/1e-4) and on the "
+        f"{layout.n_leaves} gemma-2b fp32 leaves; max abs diff {errs}")
+    return leaves, errs
+
+
+def pl_row(name, source, errs, ms, plain_ms, nbytes, flops, library_ms=None):
+    b, f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": PL_REPLACES[name], "launches": 0,
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(b, f) * 1e3,
+            "bound_by": "bytes" if b >= f else "operations",
+            "library_ms": library_ms}
+
+
+def phase_per_leaf_timing(torch, sngm, lars, leaves, errs, n=20):
+    """Each kernel over the 11 gemma-2b leaves, as one per-leaf step
+    launches it (11 fused_sngm_update, 22 lars_sqnorm, 11 lars_update)."""
+    P, G, U = leaves
+    order = list(P)
+    n_el = sum(P[k].numel() for k in order)
+    n_rows = sum(max(1, -(-P[k].numel() // 1024)) for k in order)
+    inv = torch.tensor(1.0 / 300.0, device="cuda")
+    lr = torch.tensor(1.6)
+    a = torch.tensor(1.6 * 0.0021, device="cuda")
+    rows = {}
+
+    def each(fn):
+        return lambda: [fn(k) for k in order]
+    kernel = each(lambda k: sngm.ops.fused_sngm_update(P[k], G[k], U[k], inv, lr, beta=0.9))
+    ms = time_calls(torch, kernel, n)
+    plain_ms = time_calls(torch, each(lambda k: sngm.ref.sngm_update_ref(
+        P[k], G[k], U[k], inv, lr, beta=0.9)), 5)
+    ms2 = time_calls(torch, kernel, n)
+    rows["fused_sngm_update"] = pl_row("fused_sngm_update", SNGM_SOURCE, errs, ms,
+                                       plain_ms, 20 * n_el, 4 * n_el)
+    log(f"fused_sngm_update over the {len(order)} gemma-2b leaves ({n_el:,} fp32 "
+        f"elements, {len(order)} launches): kernel {ms:.3f} / {ms2:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {rows['fused_sngm_update']['bound_ms']:.3f} ms "
+        f"by bytes; no single PyTorch call computes it")
+    both = [x for k in order for x in (P[k], G[k])]
+    kernel = lambda: [lars.ops.lars_sqnorm(x) for x in both]  # noqa: E731
+    ms = time_calls(torch, kernel, n)
+    plain_ms = time_calls(torch, lambda: [lars.ref.lars_sqnorm_ref(x) for x in both], 5)
+    library_ms = time_calls(torch, lambda: [torch.linalg.vector_norm(x) for x in both], n)
+    ms2 = time_calls(torch, kernel, n)
+    rows["lars_sqnorm"] = pl_row("lars_sqnorm", LARS_SOURCE, errs, ms, plain_ms,
+                                 2 * (4 * n_el + 4 * n_rows), 2 * 2 * n_el,
+                                 library_ms)
+    log(f"lars_sqnorm over w and g of the {len(order)} leaves ({2 * len(order)} "
+        f"launches): kernel {ms:.3f} / {ms2:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"vector_norm {library_ms:.3f} ms, bound "
+        f"{rows['lars_sqnorm']['bound_ms']:.3f} ms by bytes")
+    kernel = each(lambda k: lars.ops.fused_lars_update(P[k], G[k], U[k], a,
+                                                       beta=0.9, wd=1e-4))
+    ms = time_calls(torch, kernel, n)
+    plain_ms = time_calls(torch, each(lambda k: lars.ref.lars_update_ref(
+        P[k], G[k], U[k], a, beta=0.9, wd=1e-4)), 5)
+    ms2 = time_calls(torch, kernel, n)
+    rows["lars_update"] = pl_row("lars_update", LARS_SOURCE, errs, ms, plain_ms,
+                                 20 * n_el, 6 * n_el)
+    log(f"lars_update over the {len(order)} leaves ({len(order)} launches): "
+        f"kernel {ms:.3f} / {ms2:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{rows['lars_update']['bound_ms']:.3f} ms by bytes; no single PyTorch "
+        f"call computes it")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 9: full-width training, each slice's main path
+# ---------------------------------------------------------------------------
+
+OPT_KERNELS = ("chunk_sumsq", "fused_update", "adam_update", "scale_apply",
+               "fused_sngm_update", "lars_sqnorm", "lars_update")
+# (what, launcher flags, steps, kernel launches per step): each slice's path
+TRAIN_RUNS = {
+    "sngm": ("SNGM on the engine", ["--optimizer", "sngm", "--fused", "multi_tensor"],
+             4, {"chunk_sumsq": 1, "fused_update": 1}),
+    "lamb": ("LAMB on the engine (lr 0.01)",
+             ["--optimizer", "lamb", "--fused", "multi_tensor", "--lr", "0.01"],
+             4, {"adam_update": 1, "scale_apply": 1}),
+    "sngm_per_leaf": ("SNGM per leaf", ["--optimizer", "sngm", "--fused", "per_leaf"],
+                      3, {"fused_sngm_update": 11}),
+    "lars_per_leaf": ("LARS per leaf", ["--optimizer", "lars", "--fused", "per_leaf"],
+                      3, {"lars_sqnorm": 22, "lars_update": 11}),
+}
+
+
+def phase_train(torch, kernels, train_mod, run_name):
+    """``steps`` steps of full-width gemma-2b through the launcher's own
+    ``build``/``train`` (batch 8 x 512 tokens, 2 micro-batches, wd 1e-4),
+    the launch counts set to 0 just before and read just after: each
+    optimizer kernel of the path the expected number of times a step,
+    every other one never."""
+    what, flags, steps, per_step = TRAIN_RUNS[run_name]
+    args = train_mod.parse_args(
+        ["--arch", ARCH, "--steps", str(steps), "--batch", "8", "--seq", "512",
+         "--n-micro", "2", "--weight-decay", "1e-4", "--log-every", "1",
+         "--device", "cuda", "--seed", "0", *flags])
     t0 = time.perf_counter()
     run = train_mod.build(args)
     torch.cuda.synchronize()
     log(f"{run.cfg.name}: {run.n_params:,} fp32 params (random, seed 0), "
-        f"resident p and u buffers, built in {time.perf_counter() - t0:.1f} s")
+        f"{type(run.state.opt_state).__name__}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     state, mem = train_mod.train(args, run)
@@ -561,39 +855,46 @@ def phase_train(torch, kernels, train_mod):
     for t, m in enumerate(recs):
         if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm", "lr", "update_norm")):
             raise AssertionError(f"step {t}: non-finite stats {m}")
-    if launches["chunk_sumsq"] != args.steps or launches["fused_update"] != args.steps:
-        raise AssertionError(f"launches {launches} for {args.steps} steps: "
-                             f"want one of each kernel per step")
+    want = {k: per_step.get(k, 0) * args.steps for k in OPT_KERNELS}
+    if {k: launches[k] for k in OPT_KERNELS} != want:
+        raise AssertionError(f"{what}: launches {launches} for {args.steps} "
+                             f"steps, want {want}")
     steady = [m["step_time_s"] for m in recs[1:]]
     step_s = float(np.median(steady))
     tokens = args.batch * args.seq
-    log(f"trained {args.steps} SNGM steps: step 0 {recs[0]['step_time_s']:.3f} s "
-        f"(first use), then {', '.join(f'{s:.3f}' for s in steady)} s; median "
-        f"{step_s:.3f} s = {tokens / step_s:.0f} tokens/s; peak device memory "
-        f"{peak_gib:.2f} GiB; launches per step: chunk_sumsq "
-        f"{launches['chunk_sumsq'] / args.steps:g}, fused_update "
-        f"{launches['fused_update'] / args.steps:g}")
+    losses = ", ".join(f"{m['loss']:.4f}" for m in recs)
+    log(f"trained {args.steps} steps of {what}: losses {losses}; "
+        f"step 0 {recs[0]['step_time_s']:.3f} s (first use), then "
+        f"{', '.join(f'{s:.3f}' for s in steady)} s; median {step_s:.3f} s = "
+        f"{tokens / step_s:.0f} tokens/s; peak device memory {peak_gib:.2f} GiB; "
+        f"launches per step: " + ", ".join(
+            f"{k} {launches[k] / args.steps:g}" for k in per_step))
     return run, state, launches, step_s
 
 
-def phase_split(torch, run, state, step_s):
+def phase_split(torch, run, state, step_s, launches):
     """The optimizer step alone on the trained state, with gradients of the
-    same size, against the whole step."""
+    same size (the engine's flat buffers, or a dict on the per-leaf
+    path), against the whole step; then one profiled step."""
     from repro_torch.core.multi_tensor import FlatGrads, zeros_flats
-    layout = state.opt_state.layout
-    g = zeros_flats(layout, device="cuda")
-    for f in g:
-        f.normal_().mul_(1e-3)
-    grads = FlatGrads(tuple(g), layout)
+    if state.params is None:
+        layout = state.opt_state.layout
+        g = zeros_flats(layout, device="cuda")
+        for f in g:
+            f.normal_().mul_(1e-3)
+        grads = FlatGrads(tuple(g), layout)
+    else:
+        grads = {k: torch.randn_like(v).mul_(1e-3) for k, v in state.params.items()}
     holder = {"s": state}
 
     def opt_step():
         holder["s"], _ = run.opt.step_state(grads, holder["s"])
     opt_ms = time_calls(torch, opt_step, n=5)
-    log(f"optimizer step (2 launches + norm folds) {opt_ms:.2f} ms = "
-        f"{100 * opt_ms / (step_s * 1e3):.2f} % of a {step_s * 1e3:.0f} ms step; "
-        f"forward+backward of 2 micro-batches ~ {step_s * 1e3 - opt_ms:.0f} ms")
-    del grads, g
+    log(f"{run.opt.name} optimizer step ({launches} launches + the host's "
+        f"norm folds) {opt_ms:.2f} ms = {100 * opt_ms / (step_s * 1e3):.2f} % "
+        f"of a {step_s * 1e3:.0f} ms step; forward+backward of 2 micro-batches "
+        f"~ {step_s * 1e3 - opt_ms:.0f} ms")
+    del grads
     profile_step(torch, run, holder["s"])
     return opt_ms
 
@@ -626,11 +927,28 @@ def profile_step(torch, run, state, top=8):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: fused=None against fused="multi_tensor" on the same gradients
+# phase 10: fused=None against the engine and per-leaf paths, same gradients
 # ---------------------------------------------------------------------------
 
-KINDS = [("sngm", {}), ("sngm", {"norm_mode": "per_tensor"}), ("msgd", {}),
-         ("lars", {}), ("sngm", {"nesterov": True})]
+# (optimizer, its keyword arguments, execution mode held against fused=None)
+AGAINST_PLAIN = [("sngm", {"beta": 0.9}, "multi_tensor"),
+                 ("sngm", {"beta": 0.9, "norm_mode": "per_tensor"}, "multi_tensor"),
+                 ("msgd", {"beta": 0.9}, "multi_tensor"),
+                 ("lars", {"beta": 0.9}, "multi_tensor"),
+                 ("sngm", {"beta": 0.9, "nesterov": True}, "multi_tensor"),
+                 ("lamb", {}, "multi_tensor"),
+                 ("sngm", {"beta": 0.9}, "per_leaf"),
+                 ("lars", {"beta": 0.9}, "per_leaf")]
+
+
+def opt_slots(state):
+    """The optimizer's f32 slots as dicts: momentum, or LAMB's m and v."""
+    opt = state.opt_state
+    if hasattr(opt, "m"):
+        return [opt.m, opt.v]
+    if getattr(opt, "m_flats", ()):
+        return list(opt.moments)
+    return [opt.momentum]
 
 
 def phase_fused_vs_plain(torch, cfg, n_layers=2):
@@ -652,30 +970,36 @@ def phase_fused_vs_plain(torch, cfg, n_layers=2):
                             device=torch.device("cuda")).batch_at(0)
         loss_fn(leaves, batch, c, Runtime(torch.device("cuda"), remat=True))[0].backward()
         del leaves
-        for name, kw in KINDS:
-            sched = {"name": "poly_power", "kwargs": {"lr0": 1.6, "total_steps": 4}}
-            opts = [make_optimizer(name, sched, beta=0.9, weight_decay=1e-4,
-                                   fused=f, **kw) for f in (None, "multi_tensor")]
-            states = [o.init_state(params) for o in opts]
+        for name, kw, mode in AGAINST_PLAIN:
+            lr0 = 0.01 if name == "lamb" else 1.6
+            sched = {"name": "poly_power", "kwargs": {"lr0": lr0, "total_steps": 4}}
+            opts = [make_optimizer(name, sched, weight_decay=1e-4, fused=f, **kw)
+                    for f in (None, mode)]
+            # the per-leaf path updates its params in place: each state
+            # gets its own copy
+            states = [o.init_state({k: v.clone() for k, v in params.items()})
+                      for o in opts]
             for t in range(3):
-                outs = [o.step_state(grads if f else grads.tree, s)
-                        for o, s, f in zip(opts, states, (0, 1))]
+                outs = [o.step_state(grads if f == "multi_tensor" else grads.tree, s)
+                        for o, s, f in zip(opts, states, (None, mode))]
                 states = [s for s, _ in outs]
                 sa, sb = (st for _, st in outs)
                 pa, pb = (s.params_view for s in states)
-                ua, ub = (s.opt_state.momentum for s in states)
                 same = (all(same_bits(torch, sa[k], sb[k]) for k in sa)
                         and all(same_bits(torch, pa[k], pb[k]) for k in pa)
-                        and all(same_bits(torch, ua[k], ub[k]) for k in ua))
+                        and all(same_bits(torch, ua[k], ub[k])
+                                for ua, ub in zip(*map(opt_slots, states))
+                                for k in ua))
                 if not same:
                     raise AssertionError(f"{name} {kw} {param_dtype} step {t}: "
-                                         f"fused=None and multi_tensor differ")
-            checked.append(f"{name}{kw or ''}")
+                                         f"fused=None and {mode} differ")
+            checked.append(f"{name}{kw} {mode}")
             del states, outs
         del params, grads
-    log(f"fused=None == multi_tensor bitwise over 3 steps on the same "
-        f"gradients, fp32 and bf16 params, gemma-2b widths at {n_layers} "
-        f"layers: {', '.join(sorted(set(checked)))}")
+    log(f"fused=None equals each other path bitwise over 3 steps on the same "
+        f"gradients (params, optimizer slots, stats), fp32 and bf16 params, "
+        f"gemma-2b widths at {n_layers} layers: "
+        f"{'; '.join(sorted(set(checked)))}")
 
 
 def main() -> int:
@@ -691,6 +1015,10 @@ def main() -> int:
     from repro_torch import kernels, serving
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.fused_lars import ops as lars_ops
+    from repro_torch.kernels.fused_lars import ref as lars_ref
+    from repro_torch.kernels.fused_sngm import ops as sngm_ops
+    from repro_torch.kernels.fused_sngm import ref as sngm_ref
     from repro_torch.kernels.multi_tensor import ops as mt_ops
     from repro_torch.kernels.multi_tensor import ref as mt_ref
     from repro_torch.kernels.paged_attention import ops
@@ -699,9 +1027,13 @@ def main() -> int:
     from repro_torch.launch import train as train_mod
     from repro_torch.models import Runtime, make_runtime
 
+    sngm = SimpleNamespace(ops=sngm_ops, ref=sngm_ref)
+    lars = SimpleNamespace(ops=lars_ops, ref=lars_ref)
     t_start = time.perf_counter()
     phase_card(torch, build, {"paged_attention": [ops.SOURCE],
-                              mt_ops.LIB_NAME: [mt_ops.SOURCE]})
+                              mt_ops.LIB_NAME: [mt_ops.SOURCE],
+                              sngm.ops.LIB_NAME: [sngm.ops.SOURCE],
+                              lars.ops.LIB_NAME: [lars.ops.SOURCE]})
     err = phase_kernel(torch, ops, ref)
     rt = make_runtime("cuda")
     cfg = get_config(ARCH)
@@ -715,22 +1047,37 @@ def main() -> int:
     row = phase_timing(torch, ops, ref, launches, err, cfg.n_layers, step_ms)
     t_serve = time.perf_counter()
 
-    buffers, errs = phase_mt_kernels(torch, mt_ops, mt_ref, cfg)
-    mt_rows = phase_mt_timing(torch, mt_ops, mt_ref, *buffers, errs)
-    del buffers
+    (p, g, u, a), errs = phase_mt_kernels(torch, mt_ops, mt_ref, cfg)
+    rows = phase_mt_timing(torch, mt_ops, mt_ref, p, g, u, a, errs)
+    del u, a
     torch.cuda.empty_cache()
-    run, state, mt_launches, step_s = phase_train(torch, kernels, train_mod)
-    phase_split(torch, run, state, step_s)
-    del run, state
+    errs.update(phase_lamb_kernels(torch, mt_ops, mt_ref, p, g))
     torch.cuda.empty_cache()
+    rows.update(phase_lamb_timing(torch, mt_ops, mt_ref, p, g, errs))
+    torch.cuda.empty_cache()
+    leaves, pl_errs = phase_per_leaf_kernels(torch, sngm, lars, p, g,
+                                             gemma_layout(torch, cfg))
+    rows.update(phase_per_leaf_timing(torch, sngm, lars, leaves, pl_errs))
+    del p, g, leaves
+    torch.cuda.empty_cache()
+    t_kernels = time.perf_counter()
+
+    for run_name in TRAIN_RUNS:
+        run, state, run_launches, step_s = phase_train(torch, kernels,
+                                                       train_mod, run_name)
+        phase_split(torch, run, state, step_s,
+                    sum(TRAIN_RUNS[run_name][3].values()))
+        for name in TRAIN_RUNS[run_name][3]:
+            rows[name]["launches"] = run_launches[name]
+        del run, state
+        torch.cuda.empty_cache()
     phase_fused_vs_plain(torch, cfg)
-    for name, r in mt_rows.items():
-        r["launches"] = mt_launches[name]
     log(f"total {time.perf_counter() - t_start:.1f} s (serving phases "
-        f"{t_serve - t_start:.1f} s, training phases "
-        f"{time.perf_counter() - t_serve:.1f} s)")
-    print(json.dumps({"kernels": [row, mt_rows["chunk_sumsq"],
-                                  mt_rows["fused_update"]]}), flush=True)
+        f"{t_serve - t_start:.1f} s, optimizer kernel phases "
+        f"{t_kernels - t_serve:.1f} s, training phases "
+        f"{time.perf_counter() - t_kernels:.1f} s)")
+    print(json.dumps({"kernels": [row] + [rows[k] for k in OPT_KERNELS]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

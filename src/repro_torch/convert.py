@@ -1,5 +1,5 @@
-"""Weights across: the JAX package's params pytree <-> the port's
-``{dotted.path: Tensor}`` dict, bitwise.
+"""Weights and optimizer state across: the JAX package's params pytree
+<-> the port's ``{dotted.path: Tensor}`` dict, bitwise.
 
 The JAX side hands over its tree as numpy arrays (``np.asarray`` of
 each leaf, nested dicts keyed as in ``repro.models.transformer.
@@ -68,6 +68,19 @@ def to_numpy_tree(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return tree
 
 
+def _trees_on(device, params: Dict[str, Any], *slots: Dict[str, Any]):
+    """numpy trees -> dotted dicts on ``device``; every slot keyed like
+    the params."""
+    p = {k: v.to(device) for k, v in from_numpy_tree(params).items()}
+    out = [p]
+    for slot in slots:
+        t = {k: v.to(device) for k, v in from_numpy_tree(slot).items()}
+        if set(t) != set(p):
+            raise ValueError("optimizer slot keys do not match the params'")
+        out.append(t)
+    return out
+
+
 def train_state_from_numpy(params: Dict[str, Any], momentum: Dict[str, Any],
                            step: int = 0, *, resident: bool,
                            device="cpu"):
@@ -77,10 +90,7 @@ def train_state_from_numpy(params: Dict[str, Any], momentum: Dict[str, Any],
     dict form (``OptState``), on ``device``.  Bitwise, bf16 included."""
     from repro_torch.core.multi_tensor import build_layout, flatten
     from repro_torch.core.optim import FlatOptState, OptState, TrainState
-    p = {k: v.to(device) for k, v in from_numpy_tree(params).items()}
-    u = {k: v.to(device) for k, v in from_numpy_tree(momentum).items()}
-    if set(u) != set(p):
-        raise ValueError("momentum keys do not match the params'")
+    p, u = _trees_on(device, params, momentum)
     if not resident:
         return TrainState(params=p, opt_state=OptState(int(step), u))
     layout = build_layout(p)
@@ -95,3 +105,36 @@ def train_state_to_numpy(state):
     momentum, step) as numpy trees keyed like the JAX package's."""
     return (to_numpy_tree(state.params_view),
             to_numpy_tree(state.opt_state.momentum), int(state.step))
+
+
+def lamb_state_from_numpy(params: Dict[str, Any], m: Dict[str, Any],
+                          v: Dict[str, Any], step: int = 0, *,
+                          resident: bool, device="cpu"):
+    """LAMB's state across: the JAX package's params and both Adam
+    moments (numpy trees: ``ChainOptState.inner[0].m``/``.v`` of the
+    interpreter form, or ``FlatOptState.moments`` of the engine form)
+    -> the port's ``TrainState``, resident (``FlatOptState`` with
+    ``m_flats``/``v_flats``, as ``lamb(fused="multi_tensor")`` keeps it)
+    or in dict form (``LambState``), on ``device``.  Bitwise."""
+    from repro_torch.core.multi_tensor import (LAMB_FORM, build_layout,
+                                               flatten)
+    from repro_torch.core.optim import FlatOptState, LambState, TrainState
+    p, mt, vt = _trees_on(device, params, m, v)
+    if not resident:
+        return TrainState(params=p, opt_state=LambState(int(step), mt, vt))
+    layout = build_layout(p)
+    return TrainState(params=None, opt_state=FlatOptState(
+        step=int(step), p_flats=tuple(flatten(p, layout)), u_flats=(),
+        layout=layout,
+        m_flats=tuple(flatten(mt, layout, cast_to=torch.float32)),
+        v_flats=tuple(flatten(vt, layout, cast_to=torch.float32)),
+        form=LAMB_FORM))
+
+
+def lamb_state_to_numpy(state):
+    """Inverse of ``lamb_state_from_numpy``, for either form: (params, m,
+    v, step) as numpy trees keyed like the JAX package's."""
+    opt = state.opt_state
+    m, v = opt.moments if hasattr(opt, "moments") else (opt.m, opt.v)
+    return (to_numpy_tree(state.params_view), to_numpy_tree(m),
+            to_numpy_tree(v), int(state.step))

@@ -1,11 +1,14 @@
 """Multi-tensor fused optimizer engine, single device.
 
-A port of ``repro.core.multi_tensor`` (sharding, LAMB, clip rounds and
-EMA slots are not ported yet).  The parameter dict is packed into
+A port of ``repro.core.multi_tensor`` (sharding, clip rounds and EMA
+slots are not ported yet).  The parameter dict is packed into
 dtype-bucketed flat buffers; one ``chunk_sumsq`` pass per bucket gives
 every global and per-tensor squared norm, and one ``fused_update`` pass
 per bucket applies momentum and the update — 2 kernel launches per
-bucket and step for sngm, sngm_per_tensor and msgd, 3 for lars.
+bucket and step for sngm, sngm_per_tensor and msgd, 3 for lars.  LAMB
+runs ``adam_update`` (both moments, the direction and its norm
+partials) and ``scale_apply`` (trust ratio, lr and apply): 2 launches
+per bucket and step.
 
 Numerics are bitwise those of the plain optimizer path (``core.optim``
 with ``fused=None``) because both share one reduction order:
@@ -20,9 +23,10 @@ The port's ``{dotted.path: Tensor}`` dicts keep insertion order, so
 ``leaf_order`` sorts the paths the way JAX does and every sum below
 walks that order.
 
-Residency: ``FlatOptState`` keeps params and f32 momentum as flat
-buffers across steps, and the kernels update them in place, where the
-JAX package donates them to ``input_output_aliases``.  A state that has
+Residency: ``FlatOptState`` keeps params and f32 momentum (LAMB: the
+two f32 moments) as flat buffers across steps, and the kernels update
+them in place, where the JAX package donates them to
+``input_output_aliases``.  A state that has
 been stepped must not be used again (its buffers now hold the new
 values), as a donated JAX state may not.  ``FlatOptState.params`` gives
 the parameters as views into ``p_flats``, so the model reads them without
@@ -32,14 +36,17 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels.fused_lars.ref import lars_sqnorm_ref
 from repro_torch.kernels.multi_tensor import ops as _ops
-from repro_torch.kernels.multi_tensor.ref import CHUNK, TILE, row_sum
+from repro_torch.kernels.multi_tensor.ref import CHUNK, TILE
 
 Tree = Dict[str, torch.Tensor]
+NOT_PORTED = "is not ported yet (ROADMAP.md Queue A)"
+LAMB_FORM = ("lamb", 0, 2)      # the JAX package's form for a clip-free LAMB
 
 
 def leaf_order(paths) -> List[str]:
@@ -103,13 +110,9 @@ def _fold_sum(x: torch.Tensor) -> torch.Tensor:
 def leaf_sumsq(x: torch.Tensor) -> torch.Tensor:
     """Sum of squares of one tensor, f32, in the engine's order: CHUNK-row
     partials, then a pairwise fold.  A size-0 leaf gives 0.0 (one zero
-    chunk), matching its empty segment."""
-    xf = x.float().reshape(-1)
-    pad = -xf.numel() % CHUNK
-    if pad or xf.numel() == 0:
-        xf = torch.cat([xf, xf.new_zeros(pad or CHUNK)])
-    x2 = xf.view(-1, CHUNK)
-    return _fold_sum(row_sum(x2 * x2))
+    chunk), matching its empty segment.  The rows are those the per-leaf
+    LARS kernel sums (``lars_sqnorm_ref``)."""
+    return _fold_sum(lars_sqnorm_ref(x))
 
 
 def tree_squared_norm(tree: Tree) -> torch.Tensor:
@@ -252,13 +255,19 @@ def _leaf_values(parts_per_bucket, layout: TreeLayout) -> List[torch.Tensor]:
 
 @dataclasses.dataclass(frozen=True)
 class FlatOptState:
-    """Params (bucket dtype) and f32 momentum kept as flat buffers, one
-    per layout bucket.  The buffers are the parameters' single owner;
-    ``params`` and ``momentum`` are views into them."""
+    """Params (bucket dtype) and the f32 optimizer slots kept as flat
+    buffers, one per layout bucket.  The momentum kinds carry their
+    momentum in ``u_flats``; LAMB (``form == LAMB_FORM``) carries its
+    first and second moments in ``m_flats``/``v_flats`` instead, and
+    ``u_flats`` is empty.  The buffers are the parameters' single owner;
+    ``params``, ``momentum`` and ``moments`` are views into them."""
     step: int
     p_flats: Tuple[torch.Tensor, ...]
     u_flats: Tuple[torch.Tensor, ...]
     layout: TreeLayout
+    m_flats: Tuple[torch.Tensor, ...] = ()
+    v_flats: Tuple[torch.Tensor, ...] = ()
+    form: Any = "momentum"
 
     @property
     def params(self) -> Tree:
@@ -267,6 +276,12 @@ class FlatOptState:
     @property
     def momentum(self) -> Tree:
         return unflatten(self.u_flats, self.layout)
+
+    @property
+    def moments(self) -> Tuple[Tree, Tree]:
+        """(m, v) views of the Adam moments (f32)."""
+        return (unflatten(self.m_flats, self.layout),
+                unflatten(self.v_flats, self.layout))
 
 
 def init_flat_state(params: Tree) -> FlatOptState:
@@ -277,6 +292,20 @@ def init_flat_state(params: Tree) -> FlatOptState:
     return FlatOptState(step=0, p_flats=tuple(p_flats),
                         u_flats=tuple(zeros_flats(layout, torch.float32, device)),
                         layout=layout)
+
+
+def init_flat_adam_state(params: Tree) -> FlatOptState:
+    """LAMB's resident state: params packed once, both moments zeros (f32)
+    in distinct buffers (the kernel updates each in place), no momentum
+    slot."""
+    layout = build_layout(params)
+    p_flats = flatten(params, layout)
+    device = p_flats[0].device if p_flats else None
+    return FlatOptState(step=0, p_flats=tuple(p_flats), u_flats=(),
+                        layout=layout,
+                        m_flats=tuple(zeros_flats(layout, torch.float32, device)),
+                        v_flats=tuple(zeros_flats(layout, torch.float32, device)),
+                        form=LAMB_FORM)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,6 +335,17 @@ def check_grad_dtypes(grads: Tree, layout: TreeLayout) -> None:
                     f"to f32).")
 
 
+def _grad_flats(grads, layout: TreeLayout) -> List[torch.Tensor]:
+    """``FlatGrads`` as they are, or a gradient dict packed here."""
+    if isinstance(grads, FlatGrads):
+        if grads.layout != layout:
+            raise ValueError("FlatGrads were packed with a different "
+                             "TreeLayout than the resident state carries")
+        return list(grads.flats)
+    check_grad_dtypes(grads, layout)
+    return flatten(grads, layout)
+
+
 def resident_step(kind: str, grads, state: FlatOptState, *, lr, beta: float,
                   weight_decay: float = 0.0, eps: float = 1e-12,
                   trust: float = 0.001, nesterov: bool = False
@@ -315,18 +355,29 @@ def resident_step(kind: str, grads, state: FlatOptState, *, lr, beta: float,
     (used as they are) or as a dict (packed here).  Returns
     ``(new_state, stats)``; the new state shares the buffers."""
     layout = state.layout
-    if isinstance(grads, FlatGrads):
-        if grads.layout != layout:
-            raise ValueError("FlatGrads were packed with a different "
-                             "TreeLayout than the resident state carries")
-        g_flats = list(grads.flats)
-    else:
-        check_grad_dtypes(grads, layout)
-        g_flats = flatten(grads, layout)
+    g_flats = _grad_flats(grads, layout)
     stats = multi_tensor_step_flat(
         kind, layout, state.p_flats, g_flats, state.u_flats, lr=lr,
         beta=beta, weight_decay=weight_decay, eps=eps, trust=trust,
         nesterov=nesterov)
+    return dataclasses.replace(state, step=state.step + 1), stats
+
+
+def resident_lamb_step(grads, state: FlatOptState, *, lr, b1: float,
+                       b2: float, eps: float, weight_decay: float = 0.0,
+                       trust_eps: float = 0.0, clip: Optional[float] = None
+                       ) -> Tuple[FlatOptState, dict]:
+    """LAMB's resident path: params and both moments stay in ``state``'s
+    buffers and are updated in place; gradients as in ``resident_step``.
+    Returns ``(new_state, stats)``; the new state shares the buffers."""
+    if clip is not None:
+        raise NotImplementedError(f"clip {NOT_PORTED}")
+    layout = state.layout
+    g_flats = _grad_flats(grads, layout)
+    stats = multi_tensor_lamb_step_flat(
+        layout, state.p_flats, g_flats, state.m_flats, state.v_flats,
+        count=state.step, lr=lr, b1=b1, b2=b2, eps=eps,
+        weight_decay=weight_decay, trust_eps=trust_eps)
     return dataclasses.replace(state, step=state.step + 1), stats
 
 
@@ -419,4 +470,97 @@ def multi_tensor_step_flat(kind: str, layout: TreeLayout,
                                    cast_g_first=cast_g_first, nesterov=nesterov)
                  for pf, gf, uf, ac in zip(p_flats, g_flats, u_flats, a_chunks)]
     unorm = torch.sqrt(sum(_leaf_values(usq_parts, layout)))
+    return {"grad_norm": gnorm, "lr": lr, "update_norm": unorm}
+
+
+# ---------------------------------------------------------------------------
+# the LAMB engine step
+# ---------------------------------------------------------------------------
+
+def bias_corrections(count: int, b1: float, b2: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Adam's ``1 - b**t`` with ``t = count + 1`` in f32, as the JAX
+    package computes them (``t`` cast to f32, ``b`` a weakly typed float
+    rounded to f32): 0-dim f32 CPU tensors."""
+    t = torch.tensor(count, dtype=torch.float32) + 1.0
+    return (1 - torch.tensor(b1, dtype=torch.float32) ** t,
+            1 - torch.tensor(b2, dtype=torch.float32) ** t)
+
+
+def trust_ratio(wsq: torch.Tensor, usq: torch.Tensor,
+                trust_eps: float) -> torch.Tensor:
+    """LAMB's per-tensor ratio ``||w|| / (||u|| + eps)``, 1 where either
+    norm is zero, from the two squared norms."""
+    wn, un = torch.sqrt(wsq), torch.sqrt(usq)
+    return torch.where((wn > 0) & (un > 0), wn / (un + trust_eps), 1.0)
+
+
+def multi_tensor_lamb_step(params: Tree, grads: Tree, count: int, m: Tree,
+                           v: Tree, *, lr, b1: float, b2: float, eps: float,
+                           weight_decay: float = 0.0, trust_eps: float = 0.0,
+                           clip: Optional[float] = None
+                           ) -> Tuple[Tree, Tree, Tree, dict]:
+    """One fused LAMB step over whole dicts (the per-step packing path):
+    packs params, grads and both moments into new flat buffers, runs the
+    engine and unpacks.  ``count`` is the step before this one.  Returns
+    (new_params, new_m, new_v, stats); the inputs are left untouched."""
+    if clip is not None:
+        raise NotImplementedError(f"clip {NOT_PORTED}")
+    layout = build_layout(params)
+    check_grad_dtypes(grads, layout)
+    p_flats = flatten(params, layout)
+    g_flats = flatten(grads, layout)
+    m_flats = flatten(m, layout, cast_to=torch.float32)
+    v_flats = flatten(v, layout, cast_to=torch.float32)
+    stats = multi_tensor_lamb_step_flat(
+        layout, p_flats, g_flats, m_flats, v_flats, count=count, lr=lr,
+        b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, trust_eps=trust_eps)
+    return (unflatten(p_flats, layout), unflatten(m_flats, layout),
+            unflatten(v_flats, layout), stats)
+
+
+def multi_tensor_lamb_step_flat(layout: TreeLayout,
+                                p_flats: Sequence[torch.Tensor],
+                                g_flats: Sequence[torch.Tensor],
+                                m_flats: Sequence[torch.Tensor],
+                                v_flats: Sequence[torch.Tensor], *,
+                                count: int, lr, b1: float, b2: float,
+                                eps: float, weight_decay: float = 0.0,
+                                trust_eps: float = 0.0) -> dict:
+    """The LAMB engine core: per bucket, ``adam_update`` advances m and v
+    in place and forms the direction with its row partials (u, p, g);
+    the host folds them per segment into the trust ratios; then
+    ``scale_apply`` applies ``p <- p - lr*(ratio*u)`` in place.  The
+    stats are the raw gradient norm, the lr, and the norm of the
+    trust-scaled direction before the lr (the plain path's
+    ``update_norm``).  ``eps`` must be > 0 (zero padding must give a zero
+    direction)."""
+    assert eps > 0.0, "fused lamb requires adam eps > 0 (pad invariance)"
+    wd = float(weight_decay)
+    bc1, bc2 = bias_corrections(count, b1, b2)
+
+    # ---- pass 1: both moments, the direction and three partial sets ----
+    u_flats, usq_parts, psq_parts, gsq_parts = [], [], [], []
+    for pf, gf, mf, vf in zip(p_flats, g_flats, m_flats, v_flats):
+        ud, usq, psq, gsq = _ops.adam_update(pf, gf, mf, vf, bc1, bc2, b1=b1,
+                                             b2=b2, eps=eps, wd=wd)
+        u_flats.append(ud)
+        usq_parts.append(usq)
+        psq_parts.append(psq)
+        gsq_parts.append(gsq)
+    gnorm = torch.sqrt(sum(_leaf_values(gsq_parts, layout)))
+
+    # ---- per-segment trust ratios --------------------------------------
+    usq_by_leaf = _leaf_values(usq_parts, layout)
+    wsq_by_leaf = _leaf_values(psq_parts, layout)
+    a_chunks = [_per_chunk(b, [trust_ratio(wsq_by_leaf[s.index],
+                                           usq_by_leaf[s.index], trust_eps)
+                               for s in b.segments])
+                for b in layout.buckets]
+
+    # ---- pass 2: trust-scale + apply -----------------------------------
+    lr = torch.as_tensor(lr, dtype=torch.float32).cpu()
+    ssq_parts = [_ops.scale_apply(pf, ud, ac, lr)
+                 for pf, ud, ac in zip(p_flats, u_flats, a_chunks)]
+    unorm = torch.sqrt(sum(_leaf_values(ssq_parts, layout)))
     return {"grad_norm": gnorm, "lr": lr, "update_norm": unorm}

@@ -10,21 +10,28 @@ item 11):
     sngd   sngm with beta = 0
     msgd   kind msgd                             v = beta*v + g
     lars   kind lars                             v = beta*v + lr*local*(g + wd*w)
+    lamb   Adam direction, decoupled wd, per-tensor trust ratio, lr last
 
 ``fused=None`` runs the plain path (``_plain_kind_step``, the JAX
-package's ``_jnp_kind_step``); ``fused="multi_tensor"`` runs the engine
-in ``core/multi_tensor.py`` (2 kernel launches per step for sngm, msgd
-and nesterov sngm, 3 for lars), bitwise equal to the plain path.
+package's ``_jnp_kind_step``; for lamb ``_plain_lamb_step``, the chain
+interpreter's stages); ``fused="multi_tensor"`` runs the engine in
+``core/multi_tensor.py`` (2 kernel launches per step and dtype bucket
+for sngm, msgd, nesterov sngm and lamb, 3 for lars), bitwise equal to
+the plain path; ``fused="per_leaf"`` (sngm with the global norm, sngd
+and lars) runs one kernel per tensor (``_per_leaf_kind_step``: 1 launch
+per leaf for sngm, 3 for lars), the baseline the engine is measured
+against, bitwise equal to the plain path in fp32.
 
 State forms: with ``fused="multi_tensor"``, ``init`` returns a resident
 ``FlatOptState`` whose flat buffers own the parameters; an ``OptState``
 fed to the engine takes the per-step packing route, and a
 ``FlatOptState`` fed to the plain path reads its views and returns an
-``OptState``.  ``TrainState`` is the unified state the train step
-threads: on the resident path ``params`` is None and the buffers are the
-single parameter copy.  A stepped resident state's buffers hold the new
-values (the kernels update them in place), so only the returned state
-may be used.
+``OptState`` (lamb: ``LambState``).  ``TrainState`` is the unified
+state the train step threads: on the resident path ``params`` is None
+and the buffers are the single parameter copy.  A stepped resident
+state's buffers hold the new values (the kernels update them in place),
+and so do a per-leaf step's parameter and momentum tensors: only the
+returned state may be used.
 """
 from __future__ import annotations
 
@@ -33,20 +40,31 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.multi_tensor import (FlatGrads, FlatOptState,
-                                           global_norm, init_flat_state,
+from repro_torch.core.multi_tensor import (NOT_PORTED, FlatGrads,
+                                           FlatOptState, bias_corrections,
+                                           global_norm, init_flat_adam_state,
+                                           init_flat_state, leaf_order,
                                            leaf_sumsq, multi_tensor_step,
-                                           resident_step)
+                                           resident_lamb_step, resident_step,
+                                           trust_ratio)
 from repro_torch.core.schedules import Schedule, make_schedule
 from repro_torch.kernels.multi_tensor.ref import weak_scalar
 
 Tree = Dict[str, torch.Tensor]
-NOT_PORTED = "is not ported yet (ROADMAP.md Queue A)"
 
 
 class OptState(NamedTuple):
     step: int
     momentum: Tree             # f32, mirrors params
+
+
+class LambState(NamedTuple):
+    """LAMB's dict-form state: the step and both f32 Adam moments (the JAX
+    interpreter's ``ChainOptState`` holds the same in ``inner[0]``, and
+    the step again as the schedule's count in ``inner[-1]``)."""
+    step: int
+    m: Tree
+    v: Tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,11 +114,22 @@ class TrainState:
         return self.opt_state.params
 
 
+def _zeros_f32(params: Tree) -> Tree:
+    return {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+            for k, v in params.items()}
+
+
 def _init(params: Tree) -> OptState:
     # momentum is always fp32, independent of parameter storage dtype
-    return OptState(step=0, momentum={k: torch.zeros(v.shape, dtype=torch.float32,
-                                                     device=v.device)
-                                      for k, v in params.items()})
+    return OptState(step=0, momentum=_zeros_f32(params))
+
+
+def _resolve_fused(fused: Optional[str],
+                   allowed=("per_leaf", "multi_tensor")) -> Optional[str]:
+    """The JAX package's check of the ``fused`` argument."""
+    if fused is not None and fused not in allowed:
+        raise ValueError(f"fused={fused!r}; expected one of {allowed} or None")
+    return fused
 
 
 def _decayed(grads: Tree, params: Tree, weight_decay: float) -> Tree:
@@ -156,16 +185,56 @@ def _plain_kind_step(kind: str, grads: Tree, momentum: Tree, params: Tree, *,
     return new_p, new_u, stats
 
 
+_PER_LEAF_KINDS = ("sngm_global", "lars")
+
+
+def _per_leaf_kind_step(kind: str, grads: Tree, momentum: Tree, params: Tree,
+                        *, lr, beta: float, weight_decay: float, eps: float,
+                        trust: float):
+    """The one-kernel-per-tensor path (the JAX package's
+    ``_per_leaf_kind_step``): params and momentum are updated in place,
+    leaf by leaf in the JAX tree's order.  The decay ``g + wd*w`` and
+    SNGM's global norm stay plain ops outside the kernels, as in JAX."""
+    from repro_torch.kernels.fused_lars.ops import lars_update
+    from repro_torch.kernels.fused_sngm.ops import fused_sngm_tree
+    lr = torch.as_tensor(lr, dtype=torch.float32).cpu()
+    if kind == "sngm_global":
+        g = _decayed(grads, params, weight_decay)
+        gnorm = global_norm(g)
+        inv = 1.0 / (gnorm + eps)
+        new_p, new_u = fused_sngm_tree(params, g, momentum, inv, beta, lr)
+    else:  # lars
+        for k in leaf_order(params):
+            lars_update(params[k], grads[k], momentum[k], lr, beta=beta,
+                        wd=weight_decay, trust=trust, eps=eps)
+        new_p, new_u = params, momentum
+        gnorm = global_norm(grads)
+    stats = {"grad_norm": gnorm, "lr": lr, "update_norm": global_norm(new_u)}
+    return new_p, new_u, stats
+
+
 def _kind_optimizer(kind: str, schedule: Schedule, *, beta: float,
                     weight_decay: float = 0.0, eps: float = 1e-12,
-                    trust: float = 0.001, nesterov: bool = False,
-                    fused: Optional[str] = None,
+                    trust: float = 0.001, clip: Optional[float] = None,
+                    nesterov: bool = False, fused: Optional[str] = None,
                     name: Optional[str] = None) -> Optimizer:
     """The Optimizer for one engine kind in the requested execution mode
-    (``fused=None`` or ``"multi_tensor"``)."""
-    if fused not in (None, "multi_tensor"):
-        raise NotImplementedError(f"fused={fused!r} {NOT_PORTED}; use "
-                                  f"fused='multi_tensor' or None")
+    (``fused=None``, ``"multi_tensor"`` or ``"per_leaf"``), with the JAX
+    package's refusals."""
+    fused = _resolve_fused(fused)
+    if fused == "per_leaf" and kind not in _PER_LEAF_KINDS:
+        raise ValueError(f"fused='per_leaf' is not available for kind "
+                         f"{kind!r}; only {_PER_LEAF_KINDS} have per-leaf "
+                         f"kernels — use fused='multi_tensor'")
+    if fused == "per_leaf" and clip is not None:
+        raise ValueError("fused='per_leaf' has no clip round; use "
+                         "fused='multi_tensor' for clip-prefixed chains")
+    if fused == "per_leaf" and nesterov:
+        raise ValueError("fused='per_leaf' has no nesterov variant; use "
+                         "fused='multi_tensor' or fused=None for "
+                         "trace(nesterov=True) chains")
+    if clip is not None:
+        raise NotImplementedError(f"clip {NOT_PORTED}")
     kw = dict(beta=beta, weight_decay=weight_decay, eps=eps, trust=trust,
               nesterov=nesterov)
 
@@ -183,6 +252,10 @@ def _kind_optimizer(kind: str, schedule: Schedule, *, beta: float,
         if fused == "multi_tensor":
             new_p, new_u, stats = multi_tensor_step(
                 kind, params, grads, state.momentum, lr=lr, **kw)
+        elif fused == "per_leaf":
+            new_p, new_u, stats = _per_leaf_kind_step(
+                kind, grads, state.momentum, params, lr=lr, beta=beta,
+                weight_decay=weight_decay, eps=eps, trust=trust)
         else:
             new_p, new_u, stats = _plain_kind_step(
                 kind, grads, state.momentum, params, lr=lr, **kw)
@@ -190,6 +263,84 @@ def _kind_optimizer(kind: str, schedule: Schedule, *, beta: float,
 
     init = init_flat_state if fused == "multi_tensor" else _init
     return Optimizer(name or kind, init, step_fn, kind=kind)
+
+
+# ---------------------------------------------------------------------------
+# LAMB: the Adam family (f32 m and v beside the params)
+# ---------------------------------------------------------------------------
+
+def _plain_lamb_step(grads: Tree, state: LambState, params: Tree, lr, *,
+                     b1: float, b2: float, eps: float, weight_decay: float,
+                     trust_eps: float):
+    """The JAX chain interpreter's LAMB step, stage for stage:
+    ``scale_by_adam`` (``repro/core/transform.py:290-317``),
+    ``add_decayed_weights`` (:161-176), ``scale_by_trust_ratio``
+    (:273-287), ``scale_by_schedule`` (:320-337), then ``w - u`` in w's
+    dtype; ``grad_norm`` is the raw gradient's norm (``optim.py:615-622``).
+    Returns (new_params, new_state, stats)."""
+    lr = torch.as_tensor(lr, dtype=torch.float32).cpu()
+    # the bias corrections divide as tensors on the gradients' device: a
+    # CUDA division by a CPU scalar multiplies by its reciprocal instead
+    device = next(iter(grads.values())).device
+    bc1, bc2 = (b.to(device) for b in bias_corrections(state.step, b1, b2))
+    new_m, new_v, u = {}, {}, {}
+    for k, g in grads.items():
+        g32 = g.float()
+        new_m[k] = b1 * state.m[k] + (1 - b1) * g32
+        new_v[k] = b2 * state.v[k] + (1 - b2) * torch.square(g32)
+        u[k] = (new_m[k] / bc1) / (torch.sqrt(new_v[k] / bc2) + eps)
+    if weight_decay != 0.0:
+        u = {k: x + weak_scalar(weight_decay, params[k].dtype) * params[k]
+             for k, x in u.items()}
+    u = {k: trust_ratio(leaf_sumsq(params[k]), leaf_sumsq(x), trust_eps)
+         * x.float() for k, x in u.items()}
+    stats = {"grad_norm": global_norm(grads), "lr": lr,
+             "update_norm": global_norm(u)}
+    new_p = {k: (w - lr * u[k]).to(w.dtype) for k, w in params.items()}
+    return new_p, LambState(state.step + 1, new_m, new_v), stats
+
+
+def _lamb_optimizer(schedule: Schedule, *, b1: float, b2: float, eps: float,
+                    weight_decay: float = 0.0, trust_eps: float = 0.0,
+                    clip: Optional[float] = None, fused: Optional[str] = None,
+                    name: Optional[str] = None) -> Optimizer:
+    """LAMB in the requested execution mode.  ``fused=None`` is the plain
+    step; ``fused="multi_tensor"`` runs the engine's two passes on the
+    resident ``FlatOptState`` (``m_flats``/``v_flats``) that ``init``
+    returns.  A ``LambState`` fed to the fused optimizer takes the plain
+    step, as a ``ChainOptState`` takes the interpreter step in JAX; a
+    resident state fed to the plain path reads its buffer views."""
+    if fused not in (None, "multi_tensor"):
+        raise ValueError(f"fused={fused!r} is not available for lamb; "
+                         f"use fused='multi_tensor' or None")
+    if clip is not None:
+        raise NotImplementedError(f"clip {NOT_PORTED}")
+    kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+              trust_eps=trust_eps)
+
+    @torch.no_grad()
+    def step_fn(grads, state, params):
+        lr = schedule(state.step)
+        if fused == "multi_tensor" and isinstance(state, FlatOptState):
+            new_state, stats = resident_lamb_step(grads, state, lr=lr, **kw)
+            return None, new_state, stats
+        if isinstance(grads, FlatGrads):
+            grads = grads.tree
+        if isinstance(state, FlatOptState):
+            if params is None:
+                params = state.params
+            state = LambState(state.step, *state.moments)
+        if params is None:
+            raise TypeError("lamb's plain step needs params; only a "
+                            "FlatOptState owner supports params=None")
+        return _plain_lamb_step(grads, state, params, lr, **kw)
+
+    def init(params):
+        if fused == "multi_tensor":
+            return init_flat_adam_state(params)
+        return LambState(0, _zeros_f32(params), _zeros_f32(params))
+
+    return Optimizer(name or "lamb", init, step_fn, kind="lamb")
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +362,10 @@ def sngm(schedule: Schedule, beta: float = 0.9, weight_decay: float = 0.0,
     pass, so the launch count is unchanged."""
     if norm_mode not in ("global", "per_tensor"):
         raise ValueError(norm_mode)
+    fused = _resolve_fused(fused)
+    if fused == "per_leaf" and norm_mode != "global":
+        raise ValueError("fused='per_leaf' supports norm_mode='global' only; "
+                         "use fused='multi_tensor' for per_tensor")
     if ema_decay is not None:
         raise NotImplementedError(f"ema_decay {NOT_PORTED}")
     kind = "sngm_global" if norm_mode == "global" else "sngm_per_tensor"
@@ -229,10 +384,12 @@ def sngd(schedule: Schedule, weight_decay: float = 0.0, eps: float = 1e-12,
 
 def msgd(schedule: Schedule, beta: float = 0.9, weight_decay: float = 0.0,
          nesterov: bool = False, fused: Optional[str] = None) -> Optimizer:
-    """Momentum SGD:  v_{t+1} = beta v_t + g_t ;  w_{t+1} = w_t - eta v_{t+1}."""
+    """Momentum SGD:  v_{t+1} = beta v_t + g_t ;  w_{t+1} = w_t - eta v_{t+1}.
+    No per-leaf kernel exists for it."""
     return _kind_optimizer("msgd", schedule, beta=beta,
                            weight_decay=weight_decay, nesterov=nesterov,
-                           fused=fused, name="msgd")
+                           fused=_resolve_fused(fused, allowed=("multi_tensor",)),
+                           name="msgd")
 
 
 def lars(schedule: Schedule, beta: float = 0.9, weight_decay: float = 0.0,
@@ -249,7 +406,19 @@ def lars(schedule: Schedule, beta: float = 0.9, weight_decay: float = 0.0,
                            fused=fused, name="lars")
 
 
-OPTIMIZERS = {"sngm": sngm, "sngd": sngd, "msgd": msgd, "lars": lars}
+def lamb(schedule: Schedule, b1: float = 0.9, b2: float = 0.999,
+         weight_decay: float = 0.0, eps: float = 1e-6,
+         fused: Optional[str] = None) -> Optimizer:
+    """LAMB (You et al. 2020), the large-batch baseline beside LARS:
+    bias-corrected Adam direction, decoupled weight decay, per-tensor
+    trust-ratio rescale, schedule last.  Stats: the raw gradient norm,
+    the lr, and the trust-scaled direction's norm before the lr."""
+    return _lamb_optimizer(schedule, b1=b1, b2=b2, eps=eps,
+                           weight_decay=weight_decay, fused=fused, name="lamb")
+
+
+OPTIMIZERS = {"sngm": sngm, "sngd": sngd, "msgd": msgd, "lars": lars,
+              "lamb": lamb}
 
 
 def optimizer_names() -> Tuple[str, ...]:
@@ -261,7 +430,7 @@ def make_optimizer(name: str, schedule=None, **kw) -> Optimizer:
     may be a callable or a ``{"name", "kwargs"}`` spec."""
     if name not in OPTIMIZERS:
         raise KeyError(f"unknown optimizer {name!r}; available "
-                       f"{optimizer_names()} (the others {NOT_PORTED})")
+                       f"{optimizer_names()}")
     if schedule is None:
         raise TypeError("make_optimizer(name, schedule, ...) requires a schedule")
     if isinstance(schedule, dict):

@@ -14,8 +14,12 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0, "chunk_sumsq": 0,
-                            "fused_update": 0}
+                            "fused_update": 0, "adam_update": 0,
+                            "scale_apply": 0, "fused_sngm_update": 0,
+                            "lars_sqnorm": 0, "lars_update": 0}
 
 
 def record_launch(name: str) -> None:
@@ -29,3 +33,13 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def on_cuda(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU tensor
+    (the plain version runs); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
+    return True

@@ -4,9 +4,10 @@ nvcc compiles each library for ``sm_90a`` (Hopper) at first use, into
 ``build/repro_torch/`` at the repository root, named by a hash of its
 sources and flags so that an edited source is rebuilt.  A library is
 loaded with ``ctypes``; nothing here includes PyTorch's headers, which
-keeps a build to seconds.  ``build_libraries`` starts one nvcc per
-library, all at once, and waits for them together.  Nothing is built
-when a module is imported.
+keeps a build to seconds.  The shared device headers
+(``kernels/csrc/*.cuh``) enter every library's hash.  ``build_libraries``
+starts one nvcc per library, all at once, and waits for them together.
+Nothing is built when a module is imported.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from pathlib import Path
 from typing import Dict, List, Mapping, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+HEADERS = sorted((Path(__file__).resolve().parent / "csrc").glob("*.cuh"))
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,7 +51,7 @@ def nvcc() -> str:
 
 def _target(name: str, sources: Sequence[Path]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *HEADERS]:
         h.update(Path(src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -3,6 +3,8 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/multi_tensor/kernel.py:
 //   chunk_sumsq   (kernel.py:156; pl.pallas_call at :170 raw, :176 decayed)
 //   fused_update  (kernel.py:211; pl.pallas_call at :245)
+//   scale_apply   (kernel.py:273; pl.pallas_call at :293)
+//   adam_update   (kernel.py:340; pl.pallas_call at :366)
 //
 // What they compute, over one flat bucket buffer of n elements viewed as
 // (n / 1024, 1024) rows (n is a multiple of 65,536):
@@ -11,57 +13,51 @@
 //                 o  = nesterov ? beta*u' + a[r]*ge : u';
 //                 p' = (p - c*o) in p's type;  usq[r] = sum_j o[r, j]^2
 //                 p and u are updated in place.
+//   adam_update:  (LAMB pass 1) m' = b1*m + (1-b1)*g; v' = b2*v + (1-b2)*g^2;
+//                 u = (m'/bc1) / (sqrt(v'/bc2) + eps) [+ wd*p];
+//                 row sums of u^2, p^2 and g^2; m and v in place, u fresh.
+//   scale_apply:  (LAMB pass 2) s = a[r]*u; p' = (p - c*s) in p's type;
+//                 row sums of s^2; p in place.
 // decay(g, p) is g + wd*p with the plain version's roundings: for bf16 the
 // product wd*p (wd already rounded to bf16 by the caller) rounds to bf16,
 // and the sum rounds to bf16 before the cast to fp32 unless cast_g_first,
 // where g is cast first and the sum is fp32.  wd == 0 reads g only.
+// adam_update's wd*p rounds to p's type too, then adds in fp32.
 //
-// What bounds them on this card: bytes.  chunk_sumsq reads 1 or 2 elements
-// and fused_update moves 5 (p, g, u read; p, u written) for a handful of
-// flops each, far under the H100's flop/byte ridge.
+// What bounds them on this card: bytes.  chunk_sumsq reads 1 or 2 elements,
+// fused_update moves 5 (p, g, u read; p, u written), adam_update 7 (p, g,
+// m, v read; m, v, u written) and scale_apply 3 (p, u read; p written),
+// for a handful of flops each, far under the H100's flop/byte ridge.
 //
 // Design (simple and right first):
 //  * one warp per 1024-element row, 8 rows per block; lane l loads 16
 //    bytes at a time, elements e = k*32*V + l*V + c (V = 16 / sizeof(T)),
 //    so each warp-wide load is 512 contiguous bytes;
 //  * the row sum follows the plain version's pairwise halving exactly
-//    (e + e+512, then +256, ... down to one value): the halvings over k
-//    run inside a lane, the next five across lanes by shuffles, the last
-//    ones inside lane 0 over c.  With __fmul_rn / __fadd_rn everywhere no
-//    FMA contraction changes a bit, so kernel and plain version agree
-//    bitwise;
+//    (../../csrc/common.cuh: row_sum).  With __fmul_rn / __fadd_rn /
+//    __fdiv_rn / __fsqrt_rn everywhere no FMA contraction or fast division
+//    changes a bit, so kernel and plain version agree bitwise;
 //  * a row's elements are all loaded before any arithmetic, which keeps
-//    32 x 16 bytes per lane and operand in flight.
+//    32 x 16 bytes per lane and operand in flight.  adam_update reuses the
+//    moments' registers for the u^2 and g^2 sums once they are stored.
 // Making them faster (TMA bulk copies, several rows per warp in flight) is
 // later work; PERF.md holds their times against the byte bound.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "../../csrc/common.cuh"
 
 namespace {
 
-using bf16_t = __nv_bfloat16;
+using repro::bf16_t;
+using repro::copy16;
+using repro::from_f;
+using repro::kChunk;
+using repro::round_to;
+using repro::row_sum;
+using repro::to_f;
 
-constexpr int kChunk = 1024;   // elements per row
 constexpr int kWarps = 8;      // rows (warps) per block
 
 enum Decay { kNone = 0, kCastFirst = 1, kCastAfter = 2 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16_t x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16_t from_f<bf16_t>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// round to T and back: what a T-typed intermediate of the plain version does
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
 
 template <typename T, int D>
 __device__ __forceinline__ float decay(T g, T p, float wd) {
@@ -70,37 +66,6 @@ __device__ __forceinline__ float decay(T g, T p, float wd) {
   const float wp = round_to<T>(__fmul_rn(wd, to_f(p)));
   if (D == kCastFirst) return __fadd_rn(gf, wp);
   return round_to<T>(__fadd_rn(gf, wp));
-}
-
-// 16-byte-multiple vector copies between global memory and registers
-template <int BYTES>
-__device__ __forceinline__ void copy16(void* dst, const void* src) {
-  static_assert(BYTES % 16 == 0, "16-byte vectors");
-#pragma unroll
-  for (int i = 0; i < BYTES / 16; ++i)
-    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
-}
-
-// Sum of a 1024-element row held as s[k][c] by the 32 lanes of a warp, in
-// the plain version's pairwise-halving order; the result is in lane 0.
-template <int K, int V>
-__device__ __forceinline__ float row_sum(float (&s)[K][V]) {
-#pragma unroll
-  for (int h = K / 2; h >= 1; h /= 2)
-#pragma unroll
-    for (int k = 0; k < h; ++k)
-#pragma unroll
-      for (int c = 0; c < V; ++c) s[k][c] = __fadd_rn(s[k][c], s[k + h][c]);
-#pragma unroll
-  for (int off = 16; off >= 1; off /= 2)
-#pragma unroll
-    for (int c = 0; c < V; ++c)
-      s[0][c] = __fadd_rn(s[0][c], __shfl_down_sync(0xffffffffu, s[0][c], off));
-#pragma unroll
-  for (int h = V / 2; h >= 1; h /= 2)
-#pragma unroll
-    for (int c = 0; c < h; ++c) s[0][c] = __fadd_rn(s[0][c], s[0][c + h]);
-  return s[0][0];
 }
 
 template <typename T, int D>
@@ -171,6 +136,116 @@ fused_update_kernel(T* __restrict__ p, const T* __restrict__ g,
   }
   const float r = row_sum<K, V>(s);
   if (lane == 0) usq[row] = r;
+}
+
+// LAMB pass 2: s = a[r]*g; p' = (p - c*s) in p's type; ssq[r] = sum_j s^2.
+// g is the f32 direction adam_update wrote; p is updated in place.
+template <typename T>
+__global__ void __launch_bounds__(32 * kWarps)
+scale_apply_kernel(T* __restrict__ p, const float* __restrict__ g,
+                   const float* __restrict__ a, float lr_c,
+                   float* __restrict__ ssq, long long n_rows) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int K = kChunk / (32 * V);
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const long long base = row * kChunk + lane * V;
+  const float ar = a[row];
+  alignas(16) T pv[K][V];
+  alignas(16) float gv[K][V];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    copy16<sizeof(T) * V>(pv[k], p + base + k * 32 * V);
+    copy16<sizeof(float) * V>(gv[k], g + base + k * 32 * V);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      const float sc = __fmul_rn(ar, gv[k][c]);
+      pv[k][c] = from_f<T>(__fsub_rn(to_f(pv[k][c]), __fmul_rn(lr_c, sc)));
+      gv[k][c] = __fmul_rn(sc, sc);
+    }
+    copy16<sizeof(T) * V>(p + base + k * 32 * V, pv[k]);
+  }
+  const float r = row_sum<K, V>(gv);
+  if (lane == 0) ssq[row] = r;
+}
+
+struct AdamScalars {
+  float bc1, bc2, b1, b2, omb1, omb2, eps, wd;   // omb = 1 - b, from the host
+};
+
+// LAMB pass 1: both f32 moments in place, the bias-corrected direction
+//   u = (m'/bc1) / (sqrt(v'/bc2) + eps) [+ wd*p]
+// into a fresh f32 buffer, and the row sums of u^2, p^2 and g^2.
+template <typename T, bool WD>
+__global__ void __launch_bounds__(32 * kWarps)
+adam_update_kernel(const T* __restrict__ p, const T* __restrict__ g,
+                   float* __restrict__ m, float* __restrict__ v,
+                   float* __restrict__ u, float* __restrict__ usq,
+                   float* __restrict__ psq, float* __restrict__ gsq,
+                   AdamScalars sc, long long n_rows) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int K = kChunk / (32 * V);
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const long long base = row * kChunk + lane * V;
+  alignas(16) T pv[K][V];
+  alignas(16) T gv[K][V];
+  alignas(16) float mv[K][V];
+  alignas(16) float vv[K][V];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    copy16<sizeof(T) * V>(pv[k], p + base + k * 32 * V);
+    copy16<sizeof(T) * V>(gv[k], g + base + k * 32 * V);
+    copy16<sizeof(float) * V>(mv[k], m + base + k * 32 * V);
+    copy16<sizeof(float) * V>(vv[k], v + base + k * 32 * V);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    alignas(16) float ut[V];
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      const float g32 = to_f(gv[k][c]);
+      const float g2 = __fmul_rn(g32, g32);
+      const float mn = __fadd_rn(__fmul_rn(sc.b1, mv[k][c]), __fmul_rn(sc.omb1, g32));
+      const float vn = __fadd_rn(__fmul_rn(sc.b2, vv[k][c]), __fmul_rn(sc.omb2, g2));
+      float d = __fdiv_rn(__fdiv_rn(mn, sc.bc1),
+                          __fadd_rn(__fsqrt_rn(__fdiv_rn(vn, sc.bc2)), sc.eps));
+      if (WD) d = __fadd_rn(d, round_to<T>(__fmul_rn(sc.wd, to_f(pv[k][c]))));
+      mv[k][c] = mn;
+      vv[k][c] = vn;
+      ut[c] = d;
+    }
+    copy16<sizeof(float) * V>(m + base + k * 32 * V, mv[k]);
+    copy16<sizeof(float) * V>(v + base + k * 32 * V, vv[k]);
+    copy16<sizeof(float) * V>(u + base + k * 32 * V, ut);
+    // the moments are stored: their registers now hold u^2 and g^2
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      const float g32 = to_f(gv[k][c]);
+      mv[k][c] = __fmul_rn(ut[c], ut[c]);
+      vv[k][c] = __fmul_rn(g32, g32);
+    }
+  }
+  const float su = row_sum<K, V>(mv);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      const float pf = to_f(pv[k][c]);
+      mv[k][c] = __fmul_rn(pf, pf);
+    }
+  const float sp = row_sum<K, V>(mv);
+  const float sg = row_sum<K, V>(vv);
+  if (lane == 0) {
+    usq[row] = su;
+    psq[row] = sp;
+    gsq[row] = sg;
+  }
 }
 
 dim3 grid_for(long long n_rows) {
@@ -252,6 +327,48 @@ extern "C" int mt_fused_update(int dtype, void* p, const void* g, float* u,
   if (dtype == 1)
     return update_d<bf16_t>(decay_mode, nesterov, p, g, u, a, lr_c, beta, wd, usq, n_rows, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dtype as above (p's; g, a and ssq are float32).  p is updated in place.
+extern "C" int mt_scale_apply(int dtype, void* p, const float* g,
+                              const float* a, float lr_c, float* ssq,
+                              long long n_rows, void* stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    scale_apply_kernel<float><<<grid_for(n_rows), 32 * kWarps, 0, s>>>(
+        static_cast<float*>(p), g, a, lr_c, ssq, n_rows);
+  else if (dtype == 1)
+    scale_apply_kernel<bf16_t><<<grid_for(n_rows), 32 * kWarps, 0, s>>>(
+        static_cast<bf16_t*>(p), g, a, lr_c, ssq, n_rows);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype as above (p and g share it; m, v, u and the partials are float32).
+// m and v are updated in place; has_wd == 0 skips the decay term.
+extern "C" int mt_adam_update(int dtype, const void* p, const void* g,
+                              float* m, float* v, float* u, float* usq,
+                              float* psq, float* gsq, float bc1, float bc2,
+                              float b1, float b2, float omb1, float omb2,
+                              float eps, float wd, int has_wd,
+                              long long n_rows, void* stream) {
+  if (n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const AdamScalars sc{bc1, bc2, b1, b2, omb1, omb2, eps, wd};
+  const dim3 grid = grid_for(n_rows);
+#define REPRO_ADAM(T, W)                                                    \
+  adam_update_kernel<T, W><<<grid, 32 * kWarps, 0, s>>>(                   \
+      static_cast<const T*>(p), static_cast<const T*>(g), m, v, u, usq, psq, \
+      gsq, sc, n_rows)
+  if (dtype == 0 && has_wd) REPRO_ADAM(float, true);
+  else if (dtype == 0) REPRO_ADAM(float, false);
+  else if (dtype == 1 && has_wd) REPRO_ADAM(bf16_t, true);
+  else if (dtype == 1) REPRO_ADAM(bf16_t, false);
+  else return static_cast<int>(cudaErrorInvalidValue);
+#undef REPRO_ADAM
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* mt_error_string(int err) {

@@ -5,11 +5,12 @@ the hand-written kernel (``csrc/multi_tensor.cu``, built for sm_90a at
 first use) or raises: there is no fallback on the card.  Each kernel
 launch adds one to ``repro_torch.kernels.LAUNCHES``.
 
-Both wrappers keep the TPU kernels' contract (``repro.kernels.
+The wrappers keep the TPU kernels' contract (``repro.kernels.
 multi_tensor.kernel``): flat buffers of a TILE multiple of elements, one
-f32 coefficient and one f32 partial per CHUNK row.  ``fused_update``
-updates ``p`` and ``u`` in place on either device, where the JAX package
-declares them as input/output aliases.
+f32 coefficient and one f32 partial per CHUNK row.  They update in place
+on either device where the JAX package declares input/output aliases:
+``p`` and ``u`` for ``fused_update``, ``m`` and ``v`` for
+``adam_update``, ``p`` for ``scale_apply``.
 """
 from __future__ import annotations
 
@@ -19,11 +20,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import record_launch
+from repro_torch.kernels import on_cuda, record_launch
 from repro_torch.kernels.build import Library, build_library
 from repro_torch.kernels.multi_tensor.ref import (CHUNK, TILE,
+                                                  adam_update_ref,
                                                   chunk_sumsq_ref,
                                                   fused_update_ref,
+                                                  scale_apply_ref,
                                                   weak_scalar)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "multi_tensor.cu"
@@ -42,6 +45,11 @@ def library() -> Library:
         lib.mt_chunk_sumsq.restype = I
         lib.mt_fused_update.argtypes = [I, P, P, P, P, F, F, F, I, I, P, L, P]
         lib.mt_fused_update.restype = I
+        lib.mt_scale_apply.argtypes = [I, P, P, P, F, P, L, P]
+        lib.mt_scale_apply.restype = I
+        lib.mt_adam_update.argtypes = [I, P, P, P, P, P, P, P, P,
+                                       F, F, F, F, F, F, F, F, I, L, P]
+        lib.mt_adam_update.restype = I
         lib.mt_error_string.argtypes = [I]
         lib.mt_error_string.restype = ctypes.c_char_p
     return built
@@ -59,25 +67,29 @@ def _check_flat(name: str, t: torch.Tensor, dtypes, device) -> None:
         raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
 
 
+def _check_rows(name: str, a: torch.Tensor, n_rows: int, device) -> None:
+    if (a.dtype != torch.float32 or tuple(a.shape) != (n_rows,)
+            or a.device != device or not a.is_contiguous()):
+        raise ValueError(f"{name}: {a.dtype} {tuple(a.shape)} on {a.device}; "
+                         f"need contiguous f32 ({n_rows},) on {device}")
+
+
+def _check_scalar(name: str, c: torch.Tensor) -> None:
+    if c.numel() != 1 or c.dtype != torch.float32 or c.device.type != "cpu":
+        raise ValueError(f"{name} must be a one-element f32 CPU tensor")
+
+
 def _raise_on(lib, err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.mt_error_string(err).decode()}")
 
 
-def _on_cuda(t: torch.Tensor, name: str) -> bool:
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
-    return True
-
-
 def chunk_sumsq(x: torch.Tensor, p: Optional[torch.Tensor] = None, *,
                 wd: float = 0.0) -> torch.Tensor:
     """Per-CHUNK-row sum of squares of ``x``, or of ``x + wd*p`` (cast
     after the sum) when ``p`` is given and wd != 0.  Returns (n/CHUNK,) f32."""
-    if not _on_cuda(x, "chunk_sumsq"):
+    if not on_cuda(x, "chunk_sumsq"):
         return chunk_sumsq_ref(x, p, wd=wd)
     decayed = p is not None and wd != 0.0
     _check_flat("x", x, _DTYPE_CODES, x.device)
@@ -107,7 +119,7 @@ def fused_update(p: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
     ``out = beta*u_new + a*decay(g, p)`` under nesterov, else ``u_new``.
     ``c`` is a 0-dim f32 tensor.  Returns the (n/CHUNK,) f32 row sums of
     squares of ``out``."""
-    if not _on_cuda(p, "fused_update"):
+    if not on_cuda(p, "fused_update"):
         p_new, u_new, usq = fused_update_ref(
             p, g, u, a_chunk, c, beta=beta, wd=wd, cast_g_first=cast_g_first,
             nesterov=nesterov)
@@ -120,13 +132,8 @@ def fused_update(p: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
     n_rows = p.numel() // CHUNK
     if g.numel() != p.numel() or u.numel() != p.numel():
         raise ValueError(f"p {p.numel()}, g {g.numel()}, u {u.numel()} elements")
-    if (a_chunk.dtype != torch.float32 or tuple(a_chunk.shape) != (n_rows,)
-            or a_chunk.device != p.device or not a_chunk.is_contiguous()):
-        raise ValueError(f"a_chunk: {a_chunk.dtype} {tuple(a_chunk.shape)} on "
-                         f"{a_chunk.device}; need contiguous f32 ({n_rows},) "
-                         f"on {p.device}")
-    if c.numel() != 1 or c.dtype != torch.float32 or c.device.type != "cpu":
-        raise ValueError("c must be a one-element f32 CPU tensor")
+    _check_rows("a_chunk", a_chunk, n_rows, p.device)
+    _check_scalar("c", c)
     mode = (_DECAY_NONE if wd == 0.0 else
             _DECAY_CAST_FIRST if cast_g_first else _DECAY_CAST_AFTER)
     usq = torch.empty(n_rows, dtype=torch.float32, device=p.device)
@@ -141,3 +148,73 @@ def fused_update(p: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
     _raise_on(lib, err, "fused_update")
     record_launch("fused_update")
     return usq
+
+
+def scale_apply(p: torch.Tensor, g: torch.Tensor, a_chunk: torch.Tensor,
+                c: torch.Tensor) -> torch.Tensor:
+    """LAMB's apply over one bucket, in place: ``s = a*g`` per row,
+    ``p <- (p - c*s).to(p.dtype)``.  ``g`` is the f32 direction, ``c`` a
+    0-dim f32 CPU tensor.  Returns the (n/CHUNK,) f32 row sums of s^2."""
+    if not on_cuda(p, "scale_apply"):
+        p_new, ssq = scale_apply_ref(p, g, a_chunk, c)
+        p.copy_(p_new)
+        return ssq
+    _check_flat("p", p, _DTYPE_CODES, p.device)
+    _check_flat("g", g, (torch.float32,), p.device)
+    n_rows = p.numel() // CHUNK
+    if g.numel() != p.numel():
+        raise ValueError(f"p {p.numel()}, g {g.numel()} elements")
+    _check_rows("a_chunk", a_chunk, n_rows, p.device)
+    _check_scalar("c", c)
+    ssq = torch.empty(n_rows, dtype=torch.float32, device=p.device)
+    lib = library().lib
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = lib.mt_scale_apply(_DTYPE_CODES[p.dtype], p.data_ptr(),
+                                 g.data_ptr(), a_chunk.data_ptr(), float(c),
+                                 ssq.data_ptr(), n_rows, stream)
+    _raise_on(lib, err, "scale_apply")
+    record_launch("scale_apply")
+    return ssq
+
+
+def adam_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                v: torch.Tensor, bc1: torch.Tensor, bc2: torch.Tensor, *,
+                b1: float, b2: float, eps: float, wd: float = 0.0):
+    """LAMB's Adam pass over one bucket: advances the f32 moments ``m``
+    and ``v`` in place and returns ``(u, usq, psq, gsq)``: the f32
+    direction ``(m'/bc1) / (sqrt(v'/bc2) + eps) + wd*p`` as a new buffer
+    and the (n/CHUNK,) f32 row sums of u^2, p^2 and g^2.  ``bc1``/``bc2``
+    are 0-dim f32 CPU tensors; ``eps`` must be > 0 so that zero padding
+    gives a zero direction."""
+    if not on_cuda(p, "adam_update"):
+        m_new, v_new, u, usq, psq, gsq = adam_update_ref(
+            p, g, m, v, bc1, bc2, b1=b1, b2=b2, eps=eps, wd=wd)
+        m.copy_(m_new)
+        v.copy_(v_new)
+        return u, usq, psq, gsq
+    _check_flat("p", p, _DTYPE_CODES, p.device)
+    _check_flat("g", g, (p.dtype,), p.device)
+    _check_flat("m", m, (torch.float32,), p.device)
+    _check_flat("v", v, (torch.float32,), p.device)
+    if not g.numel() == m.numel() == v.numel() == p.numel():
+        raise ValueError(f"p {p.numel()}, g {g.numel()}, m {m.numel()}, "
+                         f"v {v.numel()} elements")
+    _check_scalar("bc1", bc1)
+    _check_scalar("bc2", bc2)
+    n_rows = p.numel() // CHUNK
+    u = torch.empty(p.numel(), dtype=torch.float32, device=p.device)
+    usq, psq, gsq = torch.empty(3, n_rows, dtype=torch.float32,
+                                device=p.device).unbind(0)
+    lib = library().lib
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        err = lib.mt_adam_update(
+            _DTYPE_CODES[p.dtype], p.data_ptr(), g.data_ptr(), m.data_ptr(),
+            v.data_ptr(), u.data_ptr(), usq.data_ptr(), psq.data_ptr(),
+            gsq.data_ptr(), float(bc1), float(bc2), b1, b2, 1 - b1, 1 - b2,
+            eps, float(weak_scalar(wd, p.dtype)), int(wd != 0.0), n_rows,
+            stream)
+    _raise_on(lib, err, "adam_update")
+    record_launch("adam_update")
+    return u, usq, psq, gsq

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the multi-tensor optimizer passes.
 
 Mirror ``repro.kernels.multi_tensor.ref`` (``chunk_sumsq_ref``,
-``fused_update_ref``) and ``kernel.py:_decay`` expression for expression
-on the same (n / CHUNK, CHUNK) row view.  Two choices of the port:
+``fused_update_ref``, ``scale_apply_ref``, ``adam_update_ref``) and
+``kernel.py:_decay`` expression for expression on the same
+(n / CHUNK, CHUNK) row view.  Two choices of the port:
 
   * the sum over a row is an explicit pairwise halving of its CHUNK
     squares (``row_sum``), where the JAX package leaves the order to
@@ -76,3 +77,36 @@ def fused_update_ref(p, g, u, a_chunk, c, *, beta: float, wd: float,
     out = beta * u_new + a * ge if nesterov else u_new
     p_new = (p2 - c * out).to(p.dtype)
     return p_new.view(-1), u_new.view(-1), row_sum(out * out)
+
+
+def scale_apply_ref(p, g, a_chunk, c):
+    """LAMB's apply: ``s = a*g`` per row, ``p_new = (p - c*s).to(p.dtype)``.
+    Returns (p_new, (n / CHUNK,) f32 row sums of s^2) as new tensors; ``g``
+    is the f32 direction, ``c`` a 0-dim f32 tensor (the lr)."""
+    s = a_chunk.view(-1, 1) * g.view(-1, CHUNK)
+    p_new = (p.view(-1, CHUNK) - c * s).to(p.dtype)
+    return p_new.view(-1), row_sum(s * s)
+
+
+def adam_update_ref(p, g, m, v, bc1, bc2, *, b1: float, b2: float,
+                    eps: float, wd: float = 0.0):
+    """Both f32 Adam moments and the bias-corrected, decoupled-decayed
+    direction ``u = (m'/bc1) / (sqrt(v'/bc2) + eps) + wd*p``.  Returns
+    (m_new, v_new, u, usq, psq, gsq) as new tensors: flat f32 buffers and
+    (n / CHUNK,) f32 row sums of u^2, p^2 and g^2.  ``bc1``/``bc2`` are
+    0-dim f32 tensors (``1 - b**t``).  They divide as tensors on ``m``'s
+    device: PyTorch's CUDA division by a CPU scalar multiplies by its
+    reciprocal, which is not the division the kernel and JAX do."""
+    bc1 = bc1.to(device=m.device, dtype=torch.float32)
+    bc2 = bc2.to(device=m.device, dtype=torch.float32)
+    p2 = p.view(-1, CHUNK)
+    g32 = g.view(-1, CHUNK).float()
+    gsq = row_sum(g32 * g32)
+    m_new = b1 * m.view(-1, CHUNK) + (1 - b1) * g32
+    v_new = b2 * v.view(-1, CHUNK) + (1 - b2) * (g32 * g32)
+    u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    if wd != 0.0:
+        u = u + weak_scalar(wd, p.dtype) * p2
+    pf = p2.float()
+    return (m_new.view(-1), v_new.view(-1), u.view(-1), row_sum(u * u),
+            row_sum(pf * pf), gsq)

@@ -11,9 +11,12 @@ It adds:
     (``data.synthetic``); the JAX launcher uses ``PRNGKey(0)``, so the
     two runs start from different weights.
 
-Not ported yet, and refused with a clear error: ``--fused per_leaf``,
-checkpoints (``--ckpt``, ``--resume``), ``--data-dir``, ``--ema-decay``
-and meshes (``--model-axis``, ``--pod-axis``).
+Every optimizer of the JAX launcher runs (sngm, sngd, msgd, lars,
+lamb), in each execution mode it offers: ``--fused none``,
+``multi_tensor`` (all five) and ``per_leaf`` (sngm, sngd, lars).  Not
+ported yet, and refused with a clear error: checkpoints (``--ckpt``,
+``--resume``), ``--data-dir``, ``--ema-decay`` and meshes
+(``--model-axis``, ``--pod-axis``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
         --reduced --device cpu --steps 4 --batch 4 --seq 32 \\
@@ -54,10 +57,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                     choices=list(optimizer_names()))
     ap.add_argument("--fused", default="none",
                     choices=["none", "per_leaf", "multi_tensor"],
-                    help="optimizer execution path: plain PyTorch (none) or "
-                         "the dtype-bucketed multi-tensor engine with its "
-                         "CUDA kernels (multi_tensor; 2 launches per step "
-                         "for sngm); per_leaf " + NOT_PORTED)
+                    help="optimizer execution path: plain PyTorch (none), "
+                         "one CUDA kernel per tensor (per_leaf: sngm, sngd, "
+                         "lars), or the dtype-bucketed multi-tensor engine "
+                         "with its CUDA kernels (multi_tensor; 2 launches "
+                         "per step for sngm and lamb)")
     ap.add_argument("--lr", type=float, default=1.6)
     ap.add_argument("--beta", type=float, default=0.9)
     ap.add_argument("--weight-decay", type=float, default=1e-4)
@@ -78,8 +82,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--model-axis", type=int, default=1)
     ap.add_argument("--pod-axis", type=int, default=1)
     args = ap.parse_args(argv)
-    for flag, on in (("--fused per_leaf", args.fused == "per_leaf"),
-                     ("--ema-decay", args.ema_decay != 0.0),
+    for flag, on in (("--ema-decay", args.ema_decay != 0.0),
                      ("--ckpt / --resume", bool(args.ckpt) or args.resume),
                      ("--data-dir", bool(args.data_dir)),
                      ("a mesh (--model-axis, --pod-axis)",
@@ -116,7 +119,7 @@ def build(args) -> Run:
                 "kwargs": {"lr0": args.lr, "total_steps": args.steps,
                            "power": 1.1}}
     # each optimizer takes the flags its builder accepts, as in the JAX
-    # launcher (sngd has no beta; only sngm and msgd take nesterov)
+    # launcher (sngd and lamb have no beta; only sngm and msgd take nesterov)
     accepts = inspect.signature(OPTIMIZERS[args.optimizer]).parameters
     kw = {k: v for k, v in (("beta", args.beta),
                             ("weight_decay", args.weight_decay),

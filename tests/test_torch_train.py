@@ -374,7 +374,17 @@ def test_launcher_prints_the_jax_launchers_lines_and_fused_equals_none(capsys):
     assert outs["none"] == outs["multi_tensor"]
 
 
-@pytest.mark.parametrize("flags", [["--fused", "per_leaf"], ["--ckpt", "x"],
+def test_launcher_accepts_and_runs_per_leaf(capsys):
+    args = launcher.parse_args(["--reduced", "--device", "cpu", "--fused", "per_leaf"])
+    assert args.fused == "per_leaf"
+    losses = launcher.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu",
+                            "--steps", "1", "--batch", "4", "--seq", "32",
+                            "--log-every", "1", "--fused", "per_leaf"])
+    steps = [l for l in capsys.readouterr().out.splitlines() if l.startswith("  step")]
+    assert len(steps) == 1 and LINE.match(steps[0]) and np.isfinite(losses[0])
+
+
+@pytest.mark.parametrize("flags", [["--ckpt", "x"],
                                    ["--resume"], ["--data-dir", "d"],
                                    ["--ema-decay", "0.9"], ["--model-axis", "2"]])
 def test_launcher_refuses_what_is_not_ported(flags, capsys):
@@ -399,6 +409,7 @@ def test_training_modules_import_no_jax_and_nothing_of_repro():
             "sys.meta_path.insert(0, Block())\n"
             "import repro_torch.launch.train, repro_torch.convert, "
             "repro_torch.kernels.multi_tensor.ops, repro_torch.core.multi_tensor, "
+            "repro_torch.kernels.fused_sngm.ops, repro_torch.kernels.fused_lars.ops, "
             "repro_torch.training, repro_torch.tracker.callbacks, repro_torch.data\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
