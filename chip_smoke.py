@@ -2,23 +2,27 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
 Drives the port's paths at the full published widths of gemma-2b
-(random weights from a seed) on one NVIDIA GPU: paged serving, with
-decode attention in a hand-written CUDA kernel; training with SNGM and
-with LAMB on the multi-tensor engine, and with SNGM and LARS on the
-per-leaf path, every optimizer pass a hand-written CUDA kernel.  Holds
-every kernel against its plain PyTorch version.
+(random weights drawn on the card from ``PRNGKey(0)``, as the JAX
+package draws them) on one NVIDIA GPU: paged serving, with decode
+attention in a hand-written CUDA kernel; training with SNGM and with
+LAMB on the multi-tensor engine, and with SNGM and LARS on the per-leaf
+path, every optimizer pass a hand-written CUDA kernel; and the RMSNorm
+and flash attention op entry points, each a hand-written CUDA kernel.
+Holds every kernel (10) against its plain PyTorch version.
 
     python3 chip_smoke.py
 
 Phases, each raising on failure:
-  1. the card (nvidia-smi name and power limit), versions, the build
-     time of each kernel library (one nvcc per library, run side by
-     side) and their ptxas register/spill lines;
+  1. the card (nvidia-smi name and power limit, printed again before
+     the JSON lines), versions, the build time of each kernel library
+     (one nvcc per library, run side by side) and a summary of its
+     ptxas register and spill lines;
   2. the paged kernel against its plain version on the card, fp32 and
      bf16, over head-group, kv-head, head-dim and block-size grids,
      window and softcap, frontiers on and inside blocks, an inactive
      row, and the gemma-2b decode shape;
-  3. full-width serving: 16 requests arriving two per scheduler round on
+  3. full-width serving (the time of the on-card ``materialize`` is
+     printed): 16 requests arriving two per scheduler round on
      8 slots, four prompts sharing a 256-token prefix, a pool small
      enough to preempt; the kernel's launch count must be
      n_layers x decode steps;
@@ -54,8 +58,28 @@ Phases, each raising on failure:
      state and the same full-width gradients, bitwise over 3 steps,
      fp32 and bf16 (depth cut to 2 layers to fit both states and the
      plain path's temporaries beside each other);
- 11. one JSON line of kernel timings against their bounds, then the
-     JSON result line.
+ 11. the ``rmsnorm`` and flash attention kernels against their plain
+     versions at small shapes over every build variant (rmsnorm: vector
+     and scalar paths, fp32 and bf16 x and scale; flash: hd 64, 128,
+     256, MHA and GQA, ragged S, causal, window, softcap, non-causal,
+     fp32 and bf16);
+ 12. this slice's path: ``kernels.rmsnorm.ops.rmsnorm`` on x of
+     gemma-2b's d_model at phase 9's batch (fp32, bf16) and a d = 300
+     tail case, ``kernels.flash_attention.ops.attention`` at gemma-2b
+     prefill and a gemma2-27b local layer (S 8192, window 4096, softcap
+     50, scores of std 2), each in fp32 and bf16, with the launch counts
+     set to 0 just before and read just after;
+ 13. each of those outputs against the kernel's plain version and the
+     port's model function (``layers.rmsnorm``, ``layers._sdpa_seq``):
+     rmsnorm fp32 1e-5, flash attention fp32 2e-5 abs, and in bf16 that
+     plus one bf16 step of the value (2^-7 |y|); the window/softcap
+     cases must fail against the plain version with the softcap dropped
+     or the window edge moved by one key;
+ 14. their times against their bounds, beside the plain versions and
+     ``F.rms_norm`` / ``F.scaled_dot_product_attention`` (causal, no
+     window or softcap only);
+ 15. one JSON line of kernel timings against their bounds (10 kernels),
+     then the JSON result line.
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -64,6 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -78,6 +103,7 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12                 # CUDA cores: the kernel's fp32 FMAs
+BF16_FLOPS = 989e12                # tensor cores, dense bf16
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}     # kernel vs plain, max abs
 # phase 4: |logits(kernel path) - logits(gather path)| <= LOGIT_REL x max|logits|.
 # fp32 compute holds the whole path tightly: the two attention paths sum
@@ -125,17 +151,22 @@ def phase_card(torch, build, sources):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     libs = build.build_libraries(sources)
     log(f"kernel libraries ready in {time.perf_counter() - t0:.2f} s")
     for lib in libs.values():
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", " ".join(lib.ptxas))]
+        spills = [line for line in lib.ptxas
+                  if re.search(r"[1-9]\d* bytes spill stores", line)]
         log(f"{'built' if lib.built else 'loaded'} {lib.path.relative_to(ROOT)} "
-            f"in {lib.seconds:.2f} s")
-        for line in lib.ptxas:
-            log(f"ptxas: {line}")
+            f"in {lib.seconds:.2f} s: {len(regs)} kernels, {min(regs, default=0)}-"
+            f"{max(regs, default=0)} registers, {len(spills)} with spills "
+            f"{spills[:3]}")
+    return card
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +259,9 @@ def phase_serve(torch, kernels, serve_mod, cfg, rt):
     t0 = time.perf_counter()
     params, n_params = serve_mod.load_model(cfg, rt, seed=0)
     torch.cuda.synchronize()
-    log(f"{cfg.name}: {n_params:,} params (fp32 draws, matmul weights cast "
-        f"once to {cfg.compute_dtype}) in {time.perf_counter() - t0:.1f} s")
+    log(f"{cfg.name}: {n_params:,} params drawn on the card from PRNGKey(0) "
+        f"as the JAX package draws them (fp32, matmul weights then cast once "
+        f"to {cfg.compute_dtype}) in {time.perf_counter() - t0:.2f} s")
     prompts = traffic(cfg.vocab_size)
     sched = serve_mod.build_scheduler(
         cfg, params, rt, slots=SLOTS, block_size=BLOCK_SIZE,
@@ -399,10 +431,15 @@ def phase_timing(torch, ops, ref, launches, err, n_layers, step_ms):
 # ---------------------------------------------------------------------------
 
 MT_SOURCE = "src/repro_torch/kernels/multi_tensor/csrc/multi_tensor.cu"
-MT_REPLACES = {"chunk_sumsq": "src/repro/kernels/multi_tensor/kernel.py:156",
-               "fused_update": "src/repro/kernels/multi_tensor/kernel.py:211",
-               "scale_apply": "src/repro/kernels/multi_tensor/kernel.py:273",
-               "adam_update": "src/repro/kernels/multi_tensor/kernel.py:340"}
+REPLACES = {"chunk_sumsq": "src/repro/kernels/multi_tensor/kernel.py:156",
+            "fused_update": "src/repro/kernels/multi_tensor/kernel.py:211",
+            "scale_apply": "src/repro/kernels/multi_tensor/kernel.py:273",
+            "adam_update": "src/repro/kernels/multi_tensor/kernel.py:340",
+            "fused_sngm_update": "src/repro/kernels/fused_sngm/kernel.py:41",
+            "lars_sqnorm": "src/repro/kernels/fused_lars/kernel.py:37",
+            "lars_update": "src/repro/kernels/fused_lars/kernel.py:64",
+            "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:28",
+            "flash_attention": "src/repro/kernels/flash_attention/kernel.py:83"}
 
 
 def mt_inputs(torch, n, dtype, seed, signed_zeros=False):
@@ -519,7 +556,8 @@ def phase_mt_timing(torch, ops, ref, p, g, u, a, errs, n=20):
         g[i:i + q])).abs().max().item() for i in range(0, n_el, q))
     lib_ms = time_calls(torch, lib, n)
     raw_bound = (4 * n_el + 4 * n_rows) / HBM_BYTES_PER_S * 1e3
-    rows["chunk_sumsq"] = mt_row("chunk_sumsq", errs, ms, plain_ms, nbytes, flops)
+    rows["chunk_sumsq"] = kernel_row("chunk_sumsq", MT_SOURCE, errs["chunk_sumsq"],
+                                     ms, plain_ms, nbytes, flops)
     log(f"chunk_sumsq on {n_el:,} fp32 elements, decayed: kernel {ms:.3f} / "
         f"{ms2:.3f} ms, plain {plain_ms:.3f} ms, bound {rows['chunk_sumsq']['bound_ms']:.3f} "
         f"ms by bytes ({nbytes:,} bytes); raw: kernel {raw_ms:.3f} ms, "
@@ -534,23 +572,26 @@ def phase_mt_timing(torch, ops, ref, p, g, u, a, errs, n=20):
         p[sl], g[sl], u[sl], a[sl.start // 1024:sl.stop // 1024], c,
         beta=0.9, wd=wd)), n)
     ms2 = time_calls(torch, upd, n)
-    rows["fused_update"] = mt_row("fused_update", errs, ms, plain_ms, nbytes, flops)
+    rows["fused_update"] = kernel_row("fused_update", MT_SOURCE, errs["fused_update"],
+                                      ms, plain_ms, nbytes, flops)
     log(f"fused_update on {n_el:,} fp32 elements: kernel {ms:.3f} / {ms2:.3f} ms, "
         f"plain {plain_ms:.3f} ms, bound {rows['fused_update']['bound_ms']:.3f} ms "
         f"by bytes ({nbytes:,} bytes); no single PyTorch call computes it")
     return rows
 
 
-def mt_row(name, errs, ms, plain_ms, nbytes, flops):
-    """A kernels-line row; no single PyTorch call computes either
-    function as the main path runs it (the raw norm's yardstick is
-    logged beside it), so ``library_ms`` is null."""
-    b, f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return {"name": name, "route": "cuda", "source": MT_SOURCE,
-            "replaces": MT_REPLACES[name], "launches": 0,
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(b, f) * 1e3,
-            "bound_by": "bytes" if b >= f else "operations", "library_ms": None}
+def kernel_row(name, source, err, ms, plain_ms, nbytes, flops, library_ms=None,
+               flop_rate=FP32_FLOPS):
+    """A kernels-line row; ``launches`` is filled in from the path's run.
+    ``library_ms`` is None where no single PyTorch call computes the
+    function as the path runs it; ``flop_rate`` is the card's peak for
+    the inputs' type."""
+    b, f = nbytes / HBM_BYTES_PER_S, flops / flop_rate
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b, f) * 1e3,
+            "bound_by": "bytes" if b >= f else "operations",
+            "library_ms": library_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -657,8 +698,8 @@ def phase_lamb_timing(torch, ops, ref, p, g, errs, n=20):
     plain_ms = time_calls(torch, lambda: [ref.adam_update_ref(
         p[sl], g[sl], m[sl], v[sl], bc1, bc2, wd=1e-4, **LAMB) for sl in slices], 5)
     ms2 = time_calls(torch, adam, n)
-    rows = {"adam_update": mt_row("adam_update", errs, ms, plain_ms,
-                                  28 * n_el + 12 * n_rows, 22 * n_el)}
+    rows = {"adam_update": kernel_row("adam_update", MT_SOURCE, errs["adam_update"],
+                                      ms, plain_ms, 28 * n_el + 12 * n_rows, 22 * n_el)}
     log(f"adam_update on {n_el:,} fp32 elements: kernel {ms:.3f} / {ms2:.3f} ms, "
         f"plain {plain_ms:.3f} ms, bound {rows['adam_update']['bound_ms']:.3f} ms "
         f"by bytes (reads p, g, m, v; writes m, v, u); no single PyTorch call "
@@ -674,8 +715,8 @@ def phase_lamb_timing(torch, ops, ref, p, g, errs, n=20):
     plain_ms = time_calls(torch, lambda: [ref.scale_apply_ref(
         p[sl], u[sl], a[sl.start // 1024:sl.stop // 1024], c) for sl in slices], 5)
     ms2 = time_calls(torch, scale, n)
-    rows["scale_apply"] = mt_row("scale_apply", errs, ms, plain_ms,
-                                 12 * n_el + 8 * n_rows, 5 * n_el)
+    rows["scale_apply"] = kernel_row("scale_apply", MT_SOURCE, errs["scale_apply"],
+                                     ms, plain_ms, 12 * n_el + 8 * n_rows, 5 * n_el)
     log(f"scale_apply on {n_el:,} fp32 elements: kernel {ms:.3f} / {ms2:.3f} ms, "
         f"plain {plain_ms:.3f} ms, bound {rows['scale_apply']['bound_ms']:.3f} ms "
         f"by bytes (reads p, u; writes p); no single PyTorch call computes it")
@@ -688,9 +729,6 @@ def phase_lamb_timing(torch, ops, ref, p, g, errs, n=20):
 
 SNGM_SOURCE = "src/repro_torch/kernels/fused_sngm/csrc/fused_sngm.cu"
 LARS_SOURCE = "src/repro_torch/kernels/fused_lars/csrc/fused_lars.cu"
-PL_REPLACES = {"fused_sngm_update": "src/repro/kernels/fused_sngm/kernel.py:41",
-               "lars_sqnorm": "src/repro/kernels/fused_lars/kernel.py:37",
-               "lars_update": "src/repro/kernels/fused_lars/kernel.py:64"}
 LEAF_LENGTHS = (1, 1023, 1025, 32769)
 
 
@@ -743,16 +781,6 @@ def phase_per_leaf_kernels(torch, sngm, lars, p, g, layout):
     return leaves, errs
 
 
-def pl_row(name, source, errs, ms, plain_ms, nbytes, flops, library_ms=None):
-    b, f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": PL_REPLACES[name], "launches": 0,
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(b, f) * 1e3,
-            "bound_by": "bytes" if b >= f else "operations",
-            "library_ms": library_ms}
-
-
 def phase_per_leaf_timing(torch, sngm, lars, leaves, errs, n=20):
     """Each kernel over the 11 gemma-2b leaves, as one per-leaf step
     launches it (11 fused_sngm_update, 22 lars_sqnorm, 11 lars_update)."""
@@ -772,8 +800,9 @@ def phase_per_leaf_timing(torch, sngm, lars, leaves, errs, n=20):
     plain_ms = time_calls(torch, each(lambda k: sngm.ref.sngm_update_ref(
         P[k], G[k], U[k], inv, lr, beta=0.9)), 5)
     ms2 = time_calls(torch, kernel, n)
-    rows["fused_sngm_update"] = pl_row("fused_sngm_update", SNGM_SOURCE, errs, ms,
-                                       plain_ms, 20 * n_el, 4 * n_el)
+    rows["fused_sngm_update"] = kernel_row("fused_sngm_update", SNGM_SOURCE,
+                                           errs["fused_sngm_update"], ms, plain_ms,
+                                           20 * n_el, 4 * n_el)
     log(f"fused_sngm_update over the {len(order)} gemma-2b leaves ({n_el:,} fp32 "
         f"elements, {len(order)} launches): kernel {ms:.3f} / {ms2:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {rows['fused_sngm_update']['bound_ms']:.3f} ms "
@@ -784,9 +813,9 @@ def phase_per_leaf_timing(torch, sngm, lars, leaves, errs, n=20):
     plain_ms = time_calls(torch, lambda: [lars.ref.lars_sqnorm_ref(x) for x in both], 5)
     library_ms = time_calls(torch, lambda: [torch.linalg.vector_norm(x) for x in both], n)
     ms2 = time_calls(torch, kernel, n)
-    rows["lars_sqnorm"] = pl_row("lars_sqnorm", LARS_SOURCE, errs, ms, plain_ms,
-                                 2 * (4 * n_el + 4 * n_rows), 2 * 2 * n_el,
-                                 library_ms)
+    rows["lars_sqnorm"] = kernel_row("lars_sqnorm", LARS_SOURCE, errs["lars_sqnorm"],
+                                     ms, plain_ms, 2 * (4 * n_el + 4 * n_rows),
+                                     2 * 2 * n_el, library_ms)
     log(f"lars_sqnorm over w and g of the {len(order)} leaves ({2 * len(order)} "
         f"launches): kernel {ms:.3f} / {ms2:.3f} ms, plain {plain_ms:.3f} ms, "
         f"vector_norm {library_ms:.3f} ms, bound "
@@ -797,8 +826,8 @@ def phase_per_leaf_timing(torch, sngm, lars, leaves, errs, n=20):
     plain_ms = time_calls(torch, each(lambda k: lars.ref.lars_update_ref(
         P[k], G[k], U[k], a, beta=0.9, wd=1e-4)), 5)
     ms2 = time_calls(torch, kernel, n)
-    rows["lars_update"] = pl_row("lars_update", LARS_SOURCE, errs, ms, plain_ms,
-                                 20 * n_el, 6 * n_el)
+    rows["lars_update"] = kernel_row("lars_update", LARS_SOURCE, errs["lars_update"],
+                                     ms, plain_ms, 20 * n_el, 6 * n_el)
     log(f"lars_update over the {len(order)} leaves ({len(order)} launches): "
         f"kernel {ms:.3f} / {ms2:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{rows['lars_update']['bound_ms']:.3f} ms by bytes; no single PyTorch "
@@ -840,7 +869,7 @@ def phase_train(torch, kernels, train_mod, run_name):
     t0 = time.perf_counter()
     run = train_mod.build(args)
     torch.cuda.synchronize()
-    log(f"{run.cfg.name}: {run.n_params:,} fp32 params (random, seed 0), "
+    log(f"{run.cfg.name}: {run.n_params:,} fp32 params (PRNGKey(0) on the card), "
         f"{type(run.state.opt_state).__name__}, built in "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
@@ -952,6 +981,7 @@ def opt_slots(state):
 
 
 def phase_fused_vs_plain(torch, cfg, n_layers=2):
+    from repro_torch import prng
     from repro_torch.core.optim import make_optimizer
     from repro_torch.data import SyntheticLM
     from repro_torch.models import Runtime, materialize, model_defs
@@ -959,9 +989,7 @@ def phase_fused_vs_plain(torch, cfg, n_layers=2):
     checked = []
     for param_dtype in ("float32", "bfloat16"):
         c = dataclasses.replace(cfg, n_layers=n_layers, param_dtype=param_dtype)
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(1)
-        params = materialize(model_defs(c), gen, torch.device("cuda"))
+        params = materialize(model_defs(c), prng.PRNGKey(1), torch.device("cuda"))
         # one set of full-width gradients, from one backward pass
         opt = make_optimizer("sngm", {"name": "constant", "kwargs": {"lr": 0.1}},
                              fused="multi_tensor")
@@ -1002,6 +1030,290 @@ def phase_fused_vs_plain(torch, cfg, n_layers=2):
         f"{'; '.join(sorted(set(checked)))}")
 
 
+# ---------------------------------------------------------------------------
+# phases 11-14: RMSNorm and flash attention, the two op entry points
+# ---------------------------------------------------------------------------
+
+RMS_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
+FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+# fp32 bounds, max abs; in bf16 one rounding step of the value is added
+# (see over_bound)
+OPS_TOL = {"rmsnorm": 1e-5, "flash_attention": 2e-5}
+BF16_STEP = 2.0 ** -7              # a bf16 step is at most this times |y|
+TRAIN_ROWS = 8 * 512               # phase 9's batch: 8 sequences of 512 tokens
+Q_SCALE_LOCAL = 2.0                # gemma2-27b local case: scores of std 2
+
+
+def over_bound(torch, o, ref, abs_tol):
+    """max |o - ref| / bound over the elements (<= 1 passes).  The bound
+    is ``abs_tol``, plus in bf16 one bf16 step of the larger of the two
+    values: outputs rounded to bf16 from fp32 values that differ by less
+    than ``abs_tol`` land at most one step apart, and a step is up to
+    2^-7 |y|, so no fixed bound fits every magnitude."""
+    of, rf = o.float(), ref.float()
+    bound = abs_tol
+    if o.dtype == torch.bfloat16:
+        bound = abs_tol + BF16_STEP * torch.maximum(of.abs(), rf.abs())
+    return ((of - rf).abs() / bound).max().item()
+
+
+def ops_inputs(torch, gen, rms_spec, fa_spec):
+    """Seeded rmsnorm and flash inputs: rms_spec {name: (shape, dtype,
+    scale_dtype)}, fa_spec {name: ((B, S, H, K, hd), kw, dtype, q_mul)}.
+    x is N(0, 1) and the norm scale 1 + N(0, 0.5^2), so |y| runs past 8;
+    q, k, v are N(0, 1), q times q_mul."""
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+    rms = {name: (randn(*shape, dtype=dtype),
+                  (1.0 + 0.5 * randn(shape[-1])).to(s_dtype))
+           for name, (shape, dtype, s_dtype) in rms_spec.items()}
+    fa = {}
+    for name, ((B, S, H, K, hd), kw, dtype, q_mul) in fa_spec.items():
+        fa[name] = (((q_mul * randn(B, S, H, hd)).to(dtype),
+                     randn(B, S, K, hd, dtype=dtype),
+                     randn(B, S, K, hd, dtype=dtype)), kw)
+    return rms, fa
+
+
+def phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref):
+    """Each op's kernel against its plain version at small shapes over
+    every build variant: rmsnorm fp32/bf16 x with fp32/bf16 scales, the
+    vector path (d % 4 == 0), the scalar path (d = 300, and a d = 256 x
+    that is not 16-byte aligned); flash attention at hd 64, 128, 256, MHA
+    and GQA, ragged S, causal, window, softcap (scores of std 2), both
+    together, non-causal and non-causal with a window, fp32 and bf16."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    rms_spec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for s_dtype in (torch.float32, torch.bfloat16):
+            for shape in ((4, 128), (3, 7, 256), (2, 33, 300), (16, 2048), (5, 4608)):
+                rms_spec[(shape, dtype, s_dtype)] = (shape, dtype, s_dtype)
+    kws = [dict(causal=True), dict(causal=True, window=100),
+           dict(causal=True, softcap=50.0), dict(causal=True, window=100, softcap=30.0),
+           dict(causal=False), dict(causal=False, window=64)]
+    fa_spec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 256, 4, 4, 64), (2, 512, 4, 2, 64), (2, 256, 8, 1, 128),
+                      (1, 200, 4, 2, 128), (2, 130, 8, 1, 256)):
+            for i, kw in enumerate(kws):
+                fa_spec[(shape, i, dtype)] = (shape, kw, dtype,
+                                              Q_SCALE_LOCAL if "softcap" in kw else 1.0)
+    rms, fa = ops_inputs(torch, gen, rms_spec, fa_spec)
+    worst, n_rms = {}, 0
+    for (shape, dtype, s_dtype), (x, s) in rms.items():
+        cases = [x]
+        if shape == (3, 7, 256):       # the same rows at a 4-byte offset
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+            cases.append(buf[1:].view(shape).copy_(x))
+        for xc in cases:
+            r = over_bound(torch, rms_ops.rmsnorm(xc, s), rms_ref.rmsnorm_ref(xc, s),
+                           OPS_TOL["rmsnorm"])
+            if r > 1:
+                raise AssertionError(f"rmsnorm {shape} {dtype} scale {s_dtype} "
+                                     f"offset {xc.data_ptr() % 16}: {r:.3g} x the bound")
+            worst[("rmsnorm", dtype)] = max(worst.get(("rmsnorm", dtype), 0.0), r)
+            n_rms += 1
+    for (shape, i, dtype), ((q, k, v), kw) in fa.items():
+        o = fa_ops.attention(q, k, v, **kw)
+        r = over_bound(torch, o, fa_ref.attention_ref(q, k, v, **kw),
+                       OPS_TOL["flash_attention"])
+        if r > 1 or not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"flash_attention {shape} {kw} {dtype}: "
+                                 f"{r:.3g} x the bound")
+        worst[("flash_attention", dtype)] = max(
+            worst.get(("flash_attention", dtype), 0.0), r)
+    torch.cuda.synchronize()
+    log(f"op kernels vs plain on {n_rms} rmsnorm and {len(fa)} flash "
+        f"cases: largest share of the bound "
+        + ", ".join(f"{n} {str(d).split('.')[-1]} {r:.3g}"
+                    for (n, d), r in worst.items()))
+
+
+def ops_cases(torch, seed=5):
+    """The full-width inputs of the two ops, from a seed.  rmsnorm: x of
+    gemma-2b's d_model at phase 9's batch, fp32 and bf16, and a (33*7,
+    300) tail case; flash attention: gemma-2b prefill (B 8, S 512, H 8,
+    K 1, hd 256, causal) and a gemma2-27b local layer (B 1, S 8192, H 32,
+    K 16, hd 128, window 4096, softcap 50, q scaled so that the scores
+    have std 2 and the softcap bends the largest), each in fp32 and
+    bf16."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    f32, b16 = torch.float32, torch.bfloat16
+    local = dict(causal=True, window=4096, softcap=50.0)
+    return ops_inputs(
+        torch, gen,
+        {"gemma-2b fp32": ((TRAIN_ROWS, 2048), f32, f32),
+         "gemma-2b bf16": ((TRAIN_ROWS, 2048), b16, f32),
+         "tail d=300 fp32": ((33 * 7, 300), f32, f32),
+         "tail d=300 bf16": ((33 * 7, 300), b16, f32)},
+        {"gemma-2b prefill fp32": ((8, 512, 8, 1, 256), dict(causal=True), f32, 1.0),
+         "gemma-2b prefill bf16": ((8, 512, 8, 1, 256), dict(causal=True), b16, 1.0),
+         "gemma2-27b local fp32": ((1, 8192, 32, 16, 128), local, f32, Q_SCALE_LOCAL),
+         "gemma2-27b local bf16": ((1, 8192, 32, 16, 128), local, b16, Q_SCALE_LOCAL)})
+
+
+def phase_ops_path(torch, kernels, rms_ops, fa_ops, cases):
+    """This slice's path: ``kernels.rmsnorm.ops.rmsnorm`` and
+    ``kernels.flash_attention.ops.attention`` called as a user calls them
+    on every full-width case, with the launch counts set to 0 just before
+    and read just after: one launch of its kernel per call, no other."""
+    rms, fa = cases
+    kernels.reset_launches()
+    outs = {("rmsnorm", k): rms_ops.rmsnorm(x, s) for k, (x, s) in rms.items()}
+    outs.update({("flash_attention", k): fa_ops.attention(*qkv, **kw)
+                 for k, (qkv, kw) in fa.items()})
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {k: 0 for k in launches}
+    want.update(rmsnorm=len(rms), flash_attention=len(fa))
+    if launches != want:
+        raise AssertionError(f"op path launches {launches}, want {want}")
+    for (name, case), o in outs.items():
+        if not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"{name} {case}: output is not finite")
+    log(f"op path: rmsnorm x{launches['rmsnorm']}, flash_attention "
+        f"x{launches['flash_attention']} launches on {len(outs)} full-width "
+        f"calls, outputs finite")
+    return outs, launches
+
+
+def phase_ops_check(torch, rms_ref, fa_ref, layers, cases, outs):
+    """Each op's path output against its plain version and against the
+    port's model function (``layers.rmsnorm``, ``layers._sdpa_seq``):
+    fp32 within OPS_TOL, bf16 within one bf16 step of the value more
+    (over_bound).  ``_sdpa_seq`` rounds the probabilities to bf16 before
+    the PV product, which moves its bf16 output by up to 2^-9 max|v|
+    more; that is added to its bound.  Then the window/softcap cases
+    show that they can fail a wrong kernel: the plain version with the
+    softcap dropped, or with the window edge moved by one key either
+    way, must break the bound against the kernel's output."""
+    rms, fa = cases
+    errs = {"rmsnorm": {}, "flash_attention": {}}
+    for (name, case), o in outs.items():
+        tol = OPS_TOL[name]
+        tol_model = tol
+        if name == "rmsnorm":
+            x, s = rms[case]
+            plain = rms_ref.rmsnorm_ref(x, s)
+            model = layers.rmsnorm(s, x)
+        else:
+            (q, k, v), kw = fa[case]
+            plain = fa_ref.attention_ref(q, k, v, **kw)
+            model = layers._sdpa_seq(q, k, v, kw["causal"], kw.get("window", 0),
+                                     kw.get("softcap", 0.0), q.shape[-1] ** -0.5)
+            if o.dtype == torch.bfloat16:
+                tol_model = tol + 2.0 ** -9 * v.float().abs().max().item()
+        e_plain = (o.float() - plain.float()).abs().max().item()
+        e_model = (o.float() - model.float()).abs().max().item()
+        r_plain = over_bound(torch, o, plain, tol)
+        r_model = over_bound(torch, o, model, tol_model)
+        log(f"{name} {case}: vs plain max abs err {e_plain:.3g}, {r_plain:.3g} of "
+            f"the bound (bitwise {bool(torch.equal(o, plain))}: "
+            f"{int((o != plain).sum())} of {o.numel()} elements differ); vs the "
+            f"model's {'rmsnorm' if name == 'rmsnorm' else '_sdpa_seq'} "
+            f"{e_model:.3g}, {r_model:.3g} of its bound; max |y| "
+            f"{plain.float().abs().max().item():.3g}")
+        if r_plain > 1 or r_model > 1:
+            raise AssertionError(f"{name} {case}: {r_plain:.3g} / {r_model:.3g} "
+                                 f"x the bound")
+        errs[name][case] = e_plain
+        del plain, model
+        if name == "flash_attention" and "softcap" in kw:
+            faults = {"no softcap": dict(kw, softcap=0.0),
+                      "window + 1": dict(kw, window=kw["window"] + 1),
+                      "window - 1": dict(kw, window=kw["window"] - 1)}
+            shares = {}
+            for fault, kw_bad in faults.items():
+                shares[fault] = over_bound(
+                    torch, o, fa_ref.attention_ref(q, k, v, **kw_bad), tol)
+                if shares[fault] <= 1:
+                    raise AssertionError(f"{case}: the plain version with "
+                                         f"{fault} passes against the kernel")
+            log(f"  {case}: a kernel with a fault would fail: the plain version "
+                f"with " + ", ".join(f"{f} is {r:.3g}" for f, r in shares.items())
+                + " x the bound from the kernel's output")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def visible_pairs(S, causal, window):
+    """(query, key) pairs the mask lets through, per (batch, head)."""
+    total = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window > 0 else 0
+        hi = i if causal else S - 1
+        total += hi - lo + 1
+    return total
+
+
+def phase_ops_timing(torch, rms_ops, rms_ref, fa_ops, fa_ref, cases, errs,
+                     launches, n=20):
+    """Kernel, plain and library times of each full-width case (L2 flushed
+    between calls), against the bound worked out from its shapes, the
+    operations at the card's peak for the inputs' type (fp32 on CUDA
+    cores, bf16 on tensor cores).  The kernels line carries gemma-2b's
+    bf16 rmsnorm and fp32 prefill: the flash kernel computes in fp32, so
+    the fp32 case is the one its bound and SDPA's time describe alike."""
+    import torch.nn.functional as F
+    rms, fa = cases
+    rows = {}
+    for case, (x, s) in rms.items():
+        nbytes = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
+        flops = 4 * x.numel()          # square, sum, two products
+        ms = time_calls(torch, lambda: rms_ops.rmsnorm(x, s), n)
+        plain_ms = time_calls(torch, lambda: rms_ref.rmsnorm_ref(x, s), n)
+        w = s.to(x.dtype)
+        lib = lambda: F.rms_norm(x, (x.shape[-1],), weight=w, eps=1e-6)  # noqa: E731
+        lib_err = (lib().float() - rms_ref.rmsnorm_ref(x, s).float()).abs().max().item()
+        lib_ms = time_calls(torch, lib, n)
+        ms2 = time_calls(torch, lambda: rms_ops.rmsnorm(x, s), n)
+        row = kernel_row("rmsnorm", RMS_SOURCE, errs["rmsnorm"][case], ms,
+                         plain_ms, nbytes, flops, lib_ms)
+        log(f"rmsnorm {case} {tuple(x.shape)}: kernel {ms:.4f} / {ms2:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms (scale in "
+            f"x's dtype; max abs err vs plain {lib_err:.3g}), bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({nbytes:,} bytes)")
+        rows[case] = row
+    for case, ((q, k, v), kw) in fa.items():
+        B, S, H, hd = q.shape
+        pairs = visible_pairs(S, kw["causal"], kw.get("window", 0))
+        flops = 4 * hd * pairs * B * H         # QK^T and PV, 2 flops an FMA
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        ms = time_calls(torch, lambda: fa_ops.attention(q, k, v, **kw), n)
+        plain_ms = time_calls(torch, lambda: fa_ref.attention_ref(q, k, v, **kw),
+                              max(3, n // 4))
+        lib_ms, lib_note = None, "no single PyTorch call has softcap"
+        if "window" not in kw and "softcap" not in kw:
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qh, kh, vh, is_causal=True, enable_gqa=True)
+            lib_err = (lib().transpose(1, 2).float()
+                       - fa_ref.attention_ref(q, k, v, **kw).float()).abs().max().item()
+            lib_ms = time_calls(torch, lib, n)
+            lib_note = (f"SDPA(is_causal, enable_gqa) {lib_ms:.4f} ms (max abs "
+                        f"err vs plain {lib_err:.3g})")
+            del qh, kh, vh
+        ms2 = time_calls(torch, lambda: fa_ops.attention(q, k, v, **kw), n)
+        bf16 = q.dtype == torch.bfloat16
+        row = kernel_row("flash_attention", FA_SOURCE,
+                         errs["flash_attention"][case], ms, plain_ms, nbytes,
+                         flops, lib_ms, BF16_FLOPS if bf16 else FP32_FLOPS)
+        log(f"flash_attention {case} {kw}: kernel {ms:.4f} / {ms2:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, {lib_note}; bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']} ({flops:,} flops over {pairs:,} visible pairs "
+            f"a head at the {'bf16 tensor-core' if bf16 else 'fp32'} peak, "
+            f"{nbytes:,} bytes); {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+        rows[case] = row
+        torch.cuda.empty_cache()
+    picked = {"rmsnorm": rows["gemma-2b bf16"],
+              "flash_attention": rows["gemma-2b prefill fp32"]}
+    for name, row in picked.items():
+        row["launches"] = launches[name]
+    return picked
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
@@ -1019,21 +1331,27 @@ def main() -> int:
     from repro_torch.kernels.fused_lars import ref as lars_ref
     from repro_torch.kernels.fused_sngm import ops as sngm_ops
     from repro_torch.kernels.fused_sngm import ref as sngm_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
     from repro_torch.kernels.multi_tensor import ops as mt_ops
     from repro_torch.kernels.multi_tensor import ref as mt_ref
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref as ref
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import train as train_mod
-    from repro_torch.models import Runtime, make_runtime
+    from repro_torch.models import Runtime, layers, make_runtime
 
     sngm = SimpleNamespace(ops=sngm_ops, ref=sngm_ref)
     lars = SimpleNamespace(ops=lars_ops, ref=lars_ref)
     t_start = time.perf_counter()
-    phase_card(torch, build, {"paged_attention": [ops.SOURCE],
+    card = phase_card(torch, build, {"paged_attention": [ops.SOURCE],
                               mt_ops.LIB_NAME: [mt_ops.SOURCE],
                               sngm.ops.LIB_NAME: [sngm.ops.SOURCE],
-                              lars.ops.LIB_NAME: [lars.ops.SOURCE]})
+                              lars.ops.LIB_NAME: [lars.ops.SOURCE],
+                              rms_ops.LIB_NAME: [rms_ops.SOURCE],
+                              fa_ops.LIB_NAME: [fa_ops.SOURCE]})
     err = phase_kernel(torch, ops, ref)
     rt = make_runtime("cuda")
     cfg = get_config(ARCH)
@@ -1072,12 +1390,23 @@ def main() -> int:
         del run, state
         torch.cuda.empty_cache()
     phase_fused_vs_plain(torch, cfg)
+    t_train = time.perf_counter()
+
+    phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
+    cases = ops_cases(torch)
+    outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)
+    ops_errs = phase_ops_check(torch, rms_ref, fa_ref, layers, cases, outs)
+    del outs
+    rows.update(phase_ops_timing(torch, rms_ops, rms_ref, fa_ops, fa_ref, cases,
+                                 ops_errs, ops_launches))
     log(f"total {time.perf_counter() - t_start:.1f} s (serving phases "
         f"{t_serve - t_start:.1f} s, optimizer kernel phases "
         f"{t_kernels - t_serve:.1f} s, training phases "
-        f"{time.perf_counter() - t_kernels:.1f} s)")
-    print(json.dumps({"kernels": [row] + [rows[k] for k in OPT_KERNELS]}),
-          flush=True)
+        f"{t_train - t_kernels:.1f} s, op phases "
+        f"{time.perf_counter() - t_train:.1f} s)")
+    print(card, flush=True)            # name and power limit, again at the end
+    print(json.dumps({"kernels": [row] + [rows[k] for k in OPT_KERNELS]
+                      + [rows["rmsnorm"], rows["flash_attention"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

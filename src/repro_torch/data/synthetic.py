@@ -4,13 +4,10 @@ A port of ``repro.data.synthetic.SyntheticLM``'s batch stream: token
 sequences from a fixed random bigram chain with controllable branching,
 a learnable distribution (its entropy is log(branching) nats).
 
-The successor table comes from ``np.random.RandomState(seed)`` exactly
-as in the JAX package, so it is bitwise the same table.  The JAX
-package draws each batch's start tokens and branch choices with
-``jax.random``; the port draws them from a numpy ``Generator`` keyed by
-(seed, batch index), so the two streams differ while each is a pure
-function of (seed, i).  The parity tests hand the JAX package's batches
-to both sides; ``walk`` is the shared chain walk.
+The successor table comes from ``np.random.RandomState(seed)`` and each
+batch's start tokens and branch choices from ``repro_torch.prng`` keyed
+as the JAX package keys them, so batch ``i`` is bitwise the JAX
+package's batch ``i`` for the same seed.
 """
 from __future__ import annotations
 
@@ -18,6 +15,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from repro_torch import prng
 
 
 class SyntheticLM:
@@ -50,12 +49,12 @@ class SyntheticLM:
         return toks
 
     def batch_at(self, i: int) -> Dict[str, torch.Tensor]:
-        """Batch ``i`` of ``batch_size`` sequences, on ``device``."""
-        rng = np.random.default_rng([self.seed, i])
-        tok0 = rng.integers(0, self.vocab, self.batch, dtype=np.int32)
-        choices = rng.integers(0, self.branching, (self.batch, self.seq),
-                               dtype=np.int32)
-        tokens = torch.from_numpy(self.walk(tok0, choices))
+        """Batch ``i`` of ``batch_size`` sequences, on ``device``: the
+        draws of ``repro.data.synthetic.SyntheticLM.batch_at``."""
+        k0, k1 = prng.split(prng.fold_in(prng.PRNGKey(self.seed), i))
+        tok0 = prng.randint(k0, (self.batch,), 0, self.vocab)
+        choices = prng.randint(k1, (self.batch, self.seq), 0, self.branching)
+        tokens = torch.from_numpy(self.walk(tok0.numpy(), choices.numpy()))
         return {"tokens": tokens.to(self.device),
                 "loss_mask": torch.ones((self.batch, self.seq),
                                         dtype=torch.float32, device=self.device)}

@@ -10,8 +10,9 @@ dense ``ContinuousBatcher`` is still to port).  It adds:
     JAX launcher always serves the smoke variant; this one serves the
     full published widths unless ``--reduced`` is given.
 
-Weights are random, drawn from a ``torch.Generator`` seeded with
-``--seed`` (no checkpoint is loaded).
+Weights are random, ``materialize(defs, PRNGKey(--seed))`` drawn as the
+JAX package draws them (no checkpoint is loaded); the JAX launcher
+always draws them from ``PRNGKey(0)``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
         --slots 8 --requests 16 --prompt-len 128 --max-new 64
@@ -25,6 +26,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import ARCHS, get_config, smoke_variant
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (cast_for_compute, count, make_runtime,
@@ -38,9 +40,8 @@ def load_model(cfg: ModelConfig, rt: Runtime, seed: int):
     """Random weights for ``cfg`` on ``rt.device``, matmul weights cast
     once to the compute dtype.  Returns (params, n_params)."""
     defs = model_defs(cfg)
-    gen = torch.Generator(device=rt.device)
-    gen.manual_seed(seed)
-    return cast_for_compute(materialize(defs, gen, rt.device), cfg), count(defs)
+    params = materialize(defs, prng.PRNGKey(seed), rt.device)
+    return cast_for_compute(params, cfg), count(defs)
 
 
 def build_scheduler(cfg: ModelConfig, params, rt: Runtime, *, slots: int,

@@ -6,10 +6,11 @@ It adds:
 
   * ``--device``: ``cuda`` (the default) or ``cpu``.  Without a card it
     raises unless ``--device cpu`` is given.
-  * ``--seed``: the random weights are drawn from a ``torch.Generator``
-    seeded with it, and the synthetic batches from numpy keyed by it
-    (``data.synthetic``); the JAX launcher uses ``PRNGKey(0)``, so the
-    two runs start from different weights.
+  * ``--seed``: the weights are ``materialize(defs, PRNGKey(seed))`` and
+    the batches ``SyntheticLM(..., seed=seed)``, drawn as the JAX package
+    draws them (``repro_torch.prng``); at ``--seed 0`` they are the JAX
+    launcher's (it always uses seed 0), so the two launchers' lines
+    can be diffed.
 
 Every optimizer of the JAX launcher runs (sngm, sngd, msgd, lars,
 lamb), in each execution mode it offers: ``--fused none``,
@@ -31,6 +32,7 @@ from typing import Any, List, Optional, Sequence
 
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import ARCHS, get_config, smoke_variant
 from repro_torch.core.optim import (OPTIMIZERS, TrainState, make_optimizer,
                                     optimizer_names)
@@ -111,9 +113,7 @@ def build(args) -> Run:
         cfg = smoke_variant(cfg)
     rt = make_runtime(args.device, remat=not args.reduced)
     defs = model_defs(cfg)
-    gen = torch.Generator(device=rt.device)
-    gen.manual_seed(args.seed)
-    params = materialize(defs, gen, rt.device)
+    params = materialize(defs, prng.PRNGKey(args.seed), rt.device)
     fused = None if args.fused == "none" else args.fused
     schedule = {"name": "poly_power",
                 "kwargs": {"lr0": args.lr, "total_steps": args.steps,

@@ -3,17 +3,19 @@
 
 The port's parameters are a flat ``{dotted.path: Tensor}`` dict
 ("blocks.L0.attn.wq"); stacked period dims stay leading, as in the JAX
-tree.  ``materialize`` draws from a ``torch.Generator``: the shapes,
-scales and init kinds are those of the JAX ``materialize``, but the
-numbers differ from its ``jax.random`` draws.  Parity tests carry the
-JAX package's own parameters across with ``repro_torch.convert``.
+tree.  ``materialize`` draws each leaf from the JAX package's key for
+it (``repro_torch.prng``), so a normal leaf is the JAX ``materialize``'s
+to ``prng.NORMAL_ULP`` ulp and every other leaf is bitwise its.
 """
 from __future__ import annotations
 
 import math
+import zlib
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch import prng
 
 
 class ParamDef(NamedTuple):
@@ -61,12 +63,20 @@ def _fan_in(d: ParamDef) -> float:
     return float(d.shape[0])
 
 
-def materialize(tree, generator: torch.Generator,
+def _path_hash(path: str) -> int:
+    """The JAX package's per-leaf fold-in (``repro.models.param._path_hash``):
+    crc32 of the leaf's JAX key path, ``['blocks']/['L0']/['attn']/['wq']``
+    for the dotted path ``blocks.L0.attn.wq``."""
+    jax_path = "/".join(f"[{k!r}]" for k in path.split("."))
+    return zlib.crc32(jax_path.encode()) & 0x7FFFFFFF
+
+
+def materialize(tree, key: torch.Tensor,
                 device: torch.device) -> Dict[str, torch.Tensor]:
-    """Initialize every leaf, in dotted-path order, from ``generator``
-    (which must live on ``device``).  The fan-in is read from the leaf's
-    stacked shape, exactly as the JAX ``materialize`` reads it, so the
-    scales agree with the reference's."""
+    """Initialize every leaf on ``device`` from ``fold_in(key,
+    _path_hash(path))``, as the JAX ``materialize`` does from the same
+    key.  The fan-in is read from the leaf's stacked shape, exactly as
+    the JAX ``materialize`` reads it."""
     out = {}
     for path, d in flatten_defs(tree).items():
         if d.init == "zeros":
@@ -80,8 +90,8 @@ def materialize(tree, generator: torch.Generator,
                 raise NotImplementedError("Mamba init: ROADMAP.md Queue A, "
                                           "'Rest of the arch zoo'")
             scale = d.scale if d.scale >= 0 else 1.0 / math.sqrt(_fan_in(d))
-            t = torch.randn(d.shape, generator=generator, dtype=torch.float32,
-                            device=device).mul_(scale).to(d.dtype)
+            leaf_key = prng.fold_in(key, _path_hash(path))
+            t = prng.normal(leaf_key, d.shape, device).mul_(scale).to(d.dtype)
         out[path] = t
     return out
 

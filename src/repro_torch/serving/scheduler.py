@@ -20,9 +20,9 @@ A port of ``repro.serving.scheduler``.  It keeps:
     cannot supply, the latest-admitted victim releases its blocks and
     re-enters the queue for full recomputation.
 
-Sampling (``temperature > 0``) draws from one ``torch.Generator``
-seeded with ``seed``, so a fixed seed and workload reproduce exactly on
-one device.
+Sampling (``temperature > 0``) folds a counter into ``PRNGKey(seed)``
+once per prefill group and once per decode step, where the JAX package's
+scheduler does, so the two draw the same keys for the same workload.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.runtime import Runtime
 from repro_torch.serving.engine import (make_prefill_step, make_serve_step,
@@ -107,8 +108,8 @@ class PagedScheduler:
         self._admit_order: List[tuple] = []         # (slot, rid), oldest first
         self.tok = np.zeros((n_slots,), np.int32)   # host: last token per slot
         self.pos = np.zeros((n_slots,), np.int32)   # host: next write position
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed)
+        self._key = prng.PRNGKey(seed)
+        self._rng_ctr = 0
 
         self.finished: List[ServeRequest] = []
         self.stats = {"prefill_shapes": set(), "decode_shapes": set(),
@@ -140,6 +141,11 @@ class PagedScheduler:
             if b >= S0:
                 return b
         return self.ctx_max
+
+    def _next_rng(self) -> torch.Tensor:
+        rng = prng.fold_in(self._key, self._rng_ctr)
+        self._rng_ctr += 1
+        return rng
 
     def admit(self) -> int:
         """Admit as many queued requests as free slots and the block
@@ -179,11 +185,12 @@ class PagedScheduler:
         logits, dense = self._prefill(
             self.params, torch.from_numpy(toks).to(self.device),
             last_pos=torch.from_numpy(last).to(self.device))
+        rng = self._next_rng()
         if self.temperature == 0.0:
             first = torch.argmax(logits[:, -1, :], dim=-1)
         else:
-            first = sample_logits(logits[:, -1, :], self._gen,
-                                  self.temperature, self.top_k)
+            first = sample_logits(logits[:, -1, :], rng, self.temperature,
+                                  self.top_k)
         first = first.cpu().numpy()
         now = time.monotonic()
         self.stats["prefill_s"] += now - t0
@@ -289,11 +296,12 @@ class PagedScheduler:
                               device=self.device)
         tok = torch.from_numpy(self.tok).to(self.device)
         pos = torch.from_numpy(self.pos).to(self.device)
+        rngs = [self._next_rng() for _ in range(self.decode_chunk)]
         self.stats["decode_shapes"].add((self.n_slots, self.decode_chunk))
         outs = []
         for i in range(self.decode_chunk):
             nxt, _, self.paged = self._step(self.params, self.paged,
-                                            tok[:, None], pos, self._gen)
+                                            tok[:, None], pos, rngs[i])
             tok = torch.where(active[i], nxt, tok)
             pos = torch.where(active[i], pos + 1, pos)
             outs.append(tok)

@@ -32,6 +32,7 @@ from repro.models.param import count as jax_count
 from repro.models.param import is_def, materialize as jax_materialize
 from repro.serving import paged_cache as jpc
 from repro_torch import configs as tcfg
+from repro_torch import prng
 from repro_torch.convert import from_numpy_tree
 from repro_torch.models import (CPU_RUNTIME, Runtime, cast_for_compute, count,
                                 forward, materialize, model_defs)
@@ -126,9 +127,7 @@ def test_materialize_is_seeded_and_follows_the_jax_scales():
     defs = model_defs(cfg)
 
     def draw(seed):
-        g = torch.Generator()
-        g.manual_seed(seed)
-        return materialize(defs, g, torch.device("cpu"))
+        return materialize(defs, prng.PRNGKey(seed), torch.device("cpu"))
     a, b, c = draw(0), draw(0), draw(1)
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["embed"], c["embed"])

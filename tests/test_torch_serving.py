@@ -4,7 +4,8 @@ the launcher.
 
 Weights are the JAX package's smoke gemma-2b params carried across by
 ``repro_torch.convert``, at ``compute_dtype="float32"``, where greedy
-tokens of the two schedulers must be equal."""
+tokens of the two schedulers must be equal, and so must tokens sampled
+at temperature 0.7 from the same seed."""
 import dataclasses
 import os
 import subprocess
@@ -24,6 +25,7 @@ from repro.serving import paged_cache as jpc
 from repro.serving.scheduler import PagedScheduler as JaxScheduler
 from repro.serving.scheduler import ServeRequest as JaxRequest
 from repro_torch import configs as tcfg
+from repro_torch import prng
 from repro_torch.convert import from_numpy_tree
 from repro_torch.launch import serve as launcher
 from repro_torch.models import CPU_RUNTIME
@@ -225,6 +227,29 @@ def test_scheduler_greedy_tokens_equal_jax_scheduler(model, case):
         assert stats[1]["cow_shared_blocks"] == 4
 
 
+@pytest.mark.parametrize("case,top_k", [("shared_prefix", 0), ("preemption", 20)])
+def test_scheduler_sampled_tokens_equal_jax_scheduler(model, case, top_k):
+    """At temperature 0.7 both schedulers fold the same counter into
+    PRNGKey(seed) at the same points and draw the same Gumbel noise."""
+    jc, tc, jp, tp = model
+    prompts, kw, max_new = _traffic(case, tc.vocab_size)
+    kw = dict(kw, temperature=0.7, top_k=top_k, seed=5)
+    outs = []
+    for Sched, Req, cfg, params, rt in (
+            (JaxScheduler, JaxRequest, jc, jp, JAX_RT),
+            (PagedScheduler, ServeRequest, tc, tp, CPU_RUNTIME)):
+        s = Sched(cfg, params, rt, **kw)
+        for i, p in enumerate(prompts):
+            s.submit(Req(rid=i, prompt=p.copy(), max_new=max_new[i]))
+        outs.append({r.rid: list(r.out) for r in s.run()})
+    greedy = PagedScheduler(tc, tp, CPU_RUNTIME, **dict(kw, temperature=0.0))
+    for i, p in enumerate(prompts):
+        greedy.submit(ServeRequest(rid=i, prompt=p.copy(), max_new=max_new[i]))
+    assert sorted(outs[1]) == list(range(len(prompts)))
+    assert outs[1] == outs[0]
+    assert outs[1] != {r.rid: list(r.out) for r in greedy.run()}
+
+
 def test_scheduler_sampling_is_deterministic_under_seed(model):
     _, tc, _, tp = model
     rng = np.random.RandomState(3)
@@ -246,14 +271,13 @@ def test_scheduler_sampling_is_deterministic_under_seed(model):
 def test_sample_logits_top_k_membership_and_determinism():
     logits = torch.from_numpy(np.random.RandomState(0).randn(4, 64).astype(np.float32) * 3)
     topk = torch.topk(logits, 5).indices
-    g = torch.Generator()
-    g.manual_seed(0)
-    for _ in range(8):
-        s = sample_logits(logits, g, temperature=0.9, top_k=5)
+    key = prng.PRNGKey(0)
+    for i in range(8):
+        s = sample_logits(logits, prng.fold_in(key, i), temperature=0.9, top_k=5)
         assert s.dtype == torch.int32
         assert all(int(s[b]) in topk[b].tolist() for b in range(4))
-    a = sample_logits(logits, torch.Generator().manual_seed(1), 0.7, 10)
-    b = sample_logits(logits, torch.Generator().manual_seed(1), 0.7, 10)
+    a = sample_logits(logits, prng.PRNGKey(1), 0.7, 10)
+    b = sample_logits(logits, prng.PRNGKey(1), 0.7, 10)
     assert torch.equal(a, b)
 
 
@@ -267,7 +291,7 @@ def test_serve_step_temperature_zero_is_greedy(model):
     greedy = make_serve_step(tc, CPU_RUNTIME)
     tempered = make_serve_step(tc, CPU_RUNTIME, temperature=0.0, top_k=5)
     t1, l1, _ = greedy(tp, paged, tok, pos)
-    t2, l2, _ = tempered(tp, paged, tok, pos, torch.Generator().manual_seed(9))
+    t2, l2, _ = tempered(tp, paged, tok, pos, prng.PRNGKey(9))
     assert torch.equal(t1, t2) and torch.equal(l1, l2)
     assert torch.equal(t1, torch.argmax(l1, dim=-1).to(torch.int32))
 
