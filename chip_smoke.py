@@ -59,10 +59,10 @@ Phases, each raising on failure:
      fp32 and bf16 (depth cut to 2 layers to fit both states and the
      plain path's temporaries beside each other);
  11. the ``rmsnorm`` and flash attention kernels against their plain
-     versions at small shapes over every build variant (rmsnorm: vector
-     and scalar paths, fp32 and bf16 x and scale; flash: hd 64, 128,
-     256, MHA and GQA, ragged S, causal, window, softcap, non-causal,
-     fp32 and bf16);
+     versions at small shapes over every build variant (rmsnorm: a warp
+     or a block a row, staged or read twice, 16-, 8-byte and one-element
+     loads, fp32 and bf16 x and scale; flash: hd 64, 128, 256, MHA and
+     GQA, ragged S, causal, window, softcap, non-causal, fp32 and bf16);
  12. this slice's path: ``kernels.rmsnorm.ops.rmsnorm`` on x of
      gemma-2b's d_model at phase 9's batch (fp32, bf16) and a d = 300
      tail case, ``kernels.flash_attention.ops.attention`` at gemma-2b
@@ -77,9 +77,18 @@ Phases, each raising on failure:
      or the window edge moved by one key;
  14. their times against their bounds, beside the plain versions and
      ``F.rms_norm`` / ``F.scaled_dot_product_attention`` (causal, no
-     window or softcap only);
- 15. one JSON line of kernel timings against their bounds (10 kernels),
-     then the JSON result line.
+     window or softcap only); for each bf16 flash case its TFLOP/s, its
+     time over the fp32 kernel's and SDPA's, and its kernel's registers,
+     spills and tensor-core instructions (``cuobjdump -sass``);
+ 15. one JSON line of kernel timings against their bounds (10 kernels;
+     flash attention's row is the bf16 gemma-2b prefill), then the JSON
+     result line.
+
+Every time is the median of CUDA-event timings with L2 flushed and a
+device spin before the start event, so the host's enqueue (logged as
+``enqueue_ms``) stays out of the window (``time_kernel``).
+
+    python3 chip_smoke.py --ops-only    # phases 1 and 11-14: the two ops
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -89,6 +98,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -166,6 +176,9 @@ def phase_card(torch, build, sources):
             f"in {lib.seconds:.2f} s: {len(regs)} kernels, {min(regs, default=0)}-"
             f"{max(regs, default=0)} registers, {len(spills)} with spills "
             f"{spills[:3]}")
+        for line in lib.ptxas:             # e.g. wgmma serialised by ptxas
+            if "wgmma" in line:
+                log(f"  ptxas: {line}")
     return card
 
 
@@ -363,24 +376,44 @@ def phase_path(torch, cfg, params, Runtime, device, serving, steps=4):
 # phase 5: timing against the bound
 # ---------------------------------------------------------------------------
 
-def time_calls(torch, fn, n=50, flush_bytes=128 << 20):
-    """Median ms of ``fn()`` over n calls, each timed with its own CUDA
-    events, with a write of ``flush_bytes`` between calls so that every
-    call finds L2 cold, as a decode step does."""
+SPIN_CYCLES_PER_US = 1980          # the H100's highest SM clock, 1.98 GHz
+
+
+def time_kernel(torch, fn, n=50, flush_bytes=128 << 20):
+    """(median device ms, median host enqueue ms) of ``fn()`` over n
+    calls.  Before each call a write of ``flush_bytes`` leaves L2 cold,
+    as a decode step finds it, and a device spin (``torch.cuda._sleep``)
+    follows it before the start event: the host enqueues ``fn`` while the
+    card is still busy, so the two events bracket device work only.  The
+    spin lasts about 100 us, or twice the slower enqueue of the last two
+    warm-up calls if that is longer (the first may set something up).
+    The enqueue time is the host clock around ``fn()``."""
     scratch = torch.empty(flush_bytes, dtype=torch.uint8, device="cuda")
+    warm = []
     for _ in range(3):
+        t0 = time.perf_counter()
         fn()
-    times = []
+        warm.append((time.perf_counter() - t0) * 1e6)
+    spin = int(SPIN_CYCLES_PER_US * max(100.0, 2 * max(warm[1:])))
+    times, host = [], []
     for _ in range(n):
         scratch.zero_()
+        torch.cuda._sleep(spin)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
+        t0 = time.perf_counter()
         fn()
+        host.append((time.perf_counter() - t0) * 1e3)
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    return float(np.median(times)), float(np.median(host))
+
+
+def time_calls(torch, fn, n=50, flush_bytes=128 << 20):
+    """Median device ms of ``fn()`` (``time_kernel``)."""
+    return time_kernel(torch, fn, n, flush_bytes)[0]
 
 
 def phase_timing(torch, ops, ref, launches, err, n_layers, step_ms):
@@ -409,21 +442,22 @@ def phase_timing(torch, ops, ref, launches, err, n_layers, step_ms):
             enable_gqa=True)[:, :, 0]
 
     lib_err = (library().float() - ref(q, kp, vp, bt, pos).float()).abs().max().item()
-    ms = time_calls(torch, lambda: ops.paged_attention(q, kp, vp, bt, pos))
+    ms, enq = time_kernel(torch, lambda: ops.paged_attention(q, kp, vp, bt, pos))
     plain_ms = time_calls(torch, lambda: ref(q, kp, vp, bt, pos))
     library_ms = time_calls(torch, library)
     ms2 = time_calls(torch, lambda: ops.paged_attention(q, kp, vp, bt, pos))
     log(f"paged_decode_attention at the decode shape: kernel {ms:.4f} / "
         f"{ms2:.4f} ms, plain {plain_ms:.4f} ms, gather+SDPA {library_ms:.4f} ms "
         f"(max abs err vs plain {lib_err:.3g}), bound {bound_s * 1e3:.4f} ms by "
-        f"{bound_by} ({nbytes} bytes, {flops} flops); {n_layers} launches take "
-        f"{100 * n_layers * ms / step_ms:.1f} % of a {step_ms:.2f} ms decode step")
+        f"{bound_by} ({nbytes} bytes, {flops} flops); host enqueue {enq:.4f} ms; "
+        f"{n_layers} launches take {100 * n_layers * ms / step_ms:.1f} % of a "
+        f"{step_ms:.2f} ms decode step")
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/kernel.py:88",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms, "enqueue_ms": enq}
 
 
 # ---------------------------------------------------------------------------
@@ -546,7 +580,7 @@ def phase_mt_timing(torch, ops, ref, p, g, u, a, errs, n=20):
     # chunk_sumsq, decayed (the main path's variant): reads g and p
     nbytes = 2 * 4 * n_el + 4 * n_rows
     flops = 4 * n_el                   # wd*p, +g, square, add
-    ms = time_calls(torch, lambda: ops.chunk_sumsq(g, p, wd=wd), n)
+    ms, enq = time_kernel(torch, lambda: ops.chunk_sumsq(g, p, wd=wd), n)
     plain_ms = time_calls(torch, quarters(
         lambda sl: ref.chunk_sumsq_ref(g[sl], p[sl], wd=wd)), n)
     ms2 = time_calls(torch, lambda: ops.chunk_sumsq(g, p, wd=wd), n)
@@ -557,7 +591,7 @@ def phase_mt_timing(torch, ops, ref, p, g, u, a, errs, n=20):
     lib_ms = time_calls(torch, lib, n)
     raw_bound = (4 * n_el + 4 * n_rows) / HBM_BYTES_PER_S * 1e3
     rows["chunk_sumsq"] = kernel_row("chunk_sumsq", MT_SOURCE, errs["chunk_sumsq"],
-                                     ms, plain_ms, nbytes, flops)
+                                     ms, plain_ms, nbytes, flops, enqueue_ms=enq)
     log(f"chunk_sumsq on {n_el:,} fp32 elements, decayed: kernel {ms:.3f} / "
         f"{ms2:.3f} ms, plain {plain_ms:.3f} ms, bound {rows['chunk_sumsq']['bound_ms']:.3f} "
         f"ms by bytes ({nbytes:,} bytes); raw: kernel {raw_ms:.3f} ms, "
@@ -567,13 +601,13 @@ def phase_mt_timing(torch, ops, ref, p, g, u, a, errs, n=20):
     nbytes = 5 * 4 * n_el + 2 * 4 * n_rows
     flops = 11 * n_el
     upd = lambda: ops.fused_update(p, g, u, a, c, beta=0.9, wd=wd)  # noqa: E731
-    ms = time_calls(torch, upd, n)
+    ms, enq = time_kernel(torch, upd, n)
     plain_ms = time_calls(torch, quarters(lambda sl: ref.fused_update_ref(
         p[sl], g[sl], u[sl], a[sl.start // 1024:sl.stop // 1024], c,
         beta=0.9, wd=wd)), n)
     ms2 = time_calls(torch, upd, n)
     rows["fused_update"] = kernel_row("fused_update", MT_SOURCE, errs["fused_update"],
-                                      ms, plain_ms, nbytes, flops)
+                                      ms, plain_ms, nbytes, flops, enqueue_ms=enq)
     log(f"fused_update on {n_el:,} fp32 elements: kernel {ms:.3f} / {ms2:.3f} ms, "
         f"plain {plain_ms:.3f} ms, bound {rows['fused_update']['bound_ms']:.3f} ms "
         f"by bytes ({nbytes:,} bytes); no single PyTorch call computes it")
@@ -581,17 +615,18 @@ def phase_mt_timing(torch, ops, ref, p, g, u, a, errs, n=20):
 
 
 def kernel_row(name, source, err, ms, plain_ms, nbytes, flops, library_ms=None,
-               flop_rate=FP32_FLOPS):
+               flop_rate=FP32_FLOPS, enqueue_ms=None):
     """A kernels-line row; ``launches`` is filled in from the path's run.
     ``library_ms`` is None where no single PyTorch call computes the
     function as the path runs it; ``flop_rate`` is the card's peak for
-    the inputs' type."""
+    the inputs' type; ``enqueue_ms`` the host's time to enqueue one call
+    (outside the timed window, see ``time_kernel``)."""
     b, f = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return {"name": name, "route": "cuda", "source": source,
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b, f) * 1e3,
             "bound_by": "bytes" if b >= f else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "enqueue_ms": enqueue_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -694,12 +729,13 @@ def phase_lamb_timing(torch, ops, ref, p, g, errs, n=20):
     # the plain versions' temporaries on the whole buffer would not fit
     # beside it, so each plain call walks it in 8 slices of rows
     slices = parts(n_el, 8)
-    ms = time_calls(torch, adam, n)
+    ms, enq = time_kernel(torch, adam, n)
     plain_ms = time_calls(torch, lambda: [ref.adam_update_ref(
         p[sl], g[sl], m[sl], v[sl], bc1, bc2, wd=1e-4, **LAMB) for sl in slices], 5)
     ms2 = time_calls(torch, adam, n)
     rows = {"adam_update": kernel_row("adam_update", MT_SOURCE, errs["adam_update"],
-                                      ms, plain_ms, 28 * n_el + 12 * n_rows, 22 * n_el)}
+                                      ms, plain_ms, 28 * n_el + 12 * n_rows, 22 * n_el,
+                                      enqueue_ms=enq)}
     log(f"adam_update on {n_el:,} fp32 elements: kernel {ms:.3f} / {ms2:.3f} ms, "
         f"plain {plain_ms:.3f} ms, bound {rows['adam_update']['bound_ms']:.3f} ms "
         f"by bytes (reads p, g, m, v; writes m, v, u); no single PyTorch call "
@@ -711,12 +747,13 @@ def phase_lamb_timing(torch, ops, ref, p, g, errs, n=20):
     a = torch.rand(n_rows, device="cuda", generator=gen) + 0.5
     c = torch.tensor(0.01)
     scale = lambda: ops.scale_apply(p, u, a, c)  # noqa: E731
-    ms = time_calls(torch, scale, n)
+    ms, enq = time_kernel(torch, scale, n)
     plain_ms = time_calls(torch, lambda: [ref.scale_apply_ref(
         p[sl], u[sl], a[sl.start // 1024:sl.stop // 1024], c) for sl in slices], 5)
     ms2 = time_calls(torch, scale, n)
     rows["scale_apply"] = kernel_row("scale_apply", MT_SOURCE, errs["scale_apply"],
-                                     ms, plain_ms, 12 * n_el + 8 * n_rows, 5 * n_el)
+                                     ms, plain_ms, 12 * n_el + 8 * n_rows, 5 * n_el,
+                                     enqueue_ms=enq)
     log(f"scale_apply on {n_el:,} fp32 elements: kernel {ms:.3f} / {ms2:.3f} ms, "
         f"plain {plain_ms:.3f} ms, bound {rows['scale_apply']['bound_ms']:.3f} ms "
         f"by bytes (reads p, u; writes p); no single PyTorch call computes it")
@@ -796,38 +833,39 @@ def phase_per_leaf_timing(torch, sngm, lars, leaves, errs, n=20):
     def each(fn):
         return lambda: [fn(k) for k in order]
     kernel = each(lambda k: sngm.ops.fused_sngm_update(P[k], G[k], U[k], inv, lr, beta=0.9))
-    ms = time_calls(torch, kernel, n)
+    ms, enq = time_kernel(torch, kernel, n)
     plain_ms = time_calls(torch, each(lambda k: sngm.ref.sngm_update_ref(
         P[k], G[k], U[k], inv, lr, beta=0.9)), 5)
     ms2 = time_calls(torch, kernel, n)
     rows["fused_sngm_update"] = kernel_row("fused_sngm_update", SNGM_SOURCE,
                                            errs["fused_sngm_update"], ms, plain_ms,
-                                           20 * n_el, 4 * n_el)
+                                           20 * n_el, 4 * n_el, enqueue_ms=enq)
     log(f"fused_sngm_update over the {len(order)} gemma-2b leaves ({n_el:,} fp32 "
         f"elements, {len(order)} launches): kernel {ms:.3f} / {ms2:.3f} ms, plain "
         f"{plain_ms:.3f} ms, bound {rows['fused_sngm_update']['bound_ms']:.3f} ms "
         f"by bytes; no single PyTorch call computes it")
     both = [x for k in order for x in (P[k], G[k])]
     kernel = lambda: [lars.ops.lars_sqnorm(x) for x in both]  # noqa: E731
-    ms = time_calls(torch, kernel, n)
+    ms, enq = time_kernel(torch, kernel, n)
     plain_ms = time_calls(torch, lambda: [lars.ref.lars_sqnorm_ref(x) for x in both], 5)
     library_ms = time_calls(torch, lambda: [torch.linalg.vector_norm(x) for x in both], n)
     ms2 = time_calls(torch, kernel, n)
     rows["lars_sqnorm"] = kernel_row("lars_sqnorm", LARS_SOURCE, errs["lars_sqnorm"],
                                      ms, plain_ms, 2 * (4 * n_el + 4 * n_rows),
-                                     2 * 2 * n_el, library_ms)
+                                     2 * 2 * n_el, library_ms, enqueue_ms=enq)
     log(f"lars_sqnorm over w and g of the {len(order)} leaves ({2 * len(order)} "
         f"launches): kernel {ms:.3f} / {ms2:.3f} ms, plain {plain_ms:.3f} ms, "
         f"vector_norm {library_ms:.3f} ms, bound "
         f"{rows['lars_sqnorm']['bound_ms']:.3f} ms by bytes")
     kernel = each(lambda k: lars.ops.fused_lars_update(P[k], G[k], U[k], a,
                                                        beta=0.9, wd=1e-4))
-    ms = time_calls(torch, kernel, n)
+    ms, enq = time_kernel(torch, kernel, n)
     plain_ms = time_calls(torch, each(lambda k: lars.ref.lars_update_ref(
         P[k], G[k], U[k], a, beta=0.9, wd=1e-4)), 5)
     ms2 = time_calls(torch, kernel, n)
     rows["lars_update"] = kernel_row("lars_update", LARS_SOURCE, errs["lars_update"],
-                                     ms, plain_ms, 20 * n_el, 6 * n_el)
+                                     ms, plain_ms, 20 * n_el, 6 * n_el,
+                                     enqueue_ms=enq)
     log(f"lars_update over the {len(order)} leaves ({len(order)} launches): "
         f"kernel {ms:.3f} / {ms2:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{rows['lars_update']['bound_ms']:.3f} ms by bytes; no single PyTorch "
@@ -1077,9 +1115,12 @@ def ops_inputs(torch, gen, rms_spec, fa_spec):
 
 def phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref):
     """Each op's kernel against its plain version at small shapes over
-    every build variant: rmsnorm fp32/bf16 x with fp32/bf16 scales, the
-    vector path (d % 4 == 0), the scalar path (d = 300, and a d = 256 x
-    that is not 16-byte aligned); flash attention at hd 64, 128, 256, MHA
+    every build variant: rmsnorm fp32/bf16 x with fp32/bf16 scales, a
+    warp a row (d <= 2048; bf16 up to 4096) and a block a row (4100 and
+    up), the row staged in shared memory or, past 226 KB, read twice
+    (fp32 70,000; 120,002), loads of 16 bytes, of 8 (bf16 d = 300, 4100)
+    and of one element (4102, 120,002, and a d = 256 x that starts 4
+    bytes into its buffer); flash attention at hd 64, 128, 256, MHA
     and GQA, ragged S, causal, window, softcap (scores of std 2), both
     together, non-causal and non-causal with a window, fp32 and bf16."""
     gen = torch.Generator(device="cuda")
@@ -1087,7 +1128,8 @@ def phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref):
     rms_spec = {}
     for dtype in (torch.float32, torch.bfloat16):
         for s_dtype in (torch.float32, torch.bfloat16):
-            for shape in ((4, 128), (3, 7, 256), (2, 33, 300), (16, 2048), (5, 4608)):
+            for shape in ((4, 128), (3, 7, 256), (2, 33, 300), (16, 2048), (5, 4608),
+                          (3, 4100), (3, 4102), (2, 70000), (2, 120002)):
                 rms_spec[(shape, dtype, s_dtype)] = (shape, dtype, s_dtype)
     kws = [dict(causal=True), dict(causal=True, window=100),
            dict(causal=True, softcap=50.0), dict(causal=True, window=100, softcap=30.0),
@@ -1132,12 +1174,12 @@ def phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref):
 
 def ops_cases(torch, seed=5):
     """The full-width inputs of the two ops, from a seed.  rmsnorm: x of
-    gemma-2b's d_model at phase 9's batch, fp32 and bf16, and a (33*7,
-    300) tail case; flash attention: gemma-2b prefill (B 8, S 512, H 8,
-    K 1, hd 256, causal) and a gemma2-27b local layer (B 1, S 8192, H 32,
-    K 16, hd 128, window 4096, softcap 50, q scaled so that the scores
-    have std 2 and the softcap bends the largest), each in fp32 and
-    bf16."""
+    gemma-2b's d_model at phase 9's batch, fp32 and bf16, of gemma2-27b's
+    (4608: a block a row) in bf16, and a (33*7, 300) tail case; flash
+    attention: gemma-2b prefill (B 8, S 512, H 8, K 1, hd 256, causal)
+    and a gemma2-27b local layer (B 1, S 8192, H 32, K 16, hd 128,
+    window 4096, softcap 50, q scaled so that the scores have std 2 and
+    the softcap bends the largest), each in fp32 and bf16."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     f32, b16 = torch.float32, torch.bfloat16
@@ -1146,6 +1188,7 @@ def ops_cases(torch, seed=5):
         torch, gen,
         {"gemma-2b fp32": ((TRAIN_ROWS, 2048), f32, f32),
          "gemma-2b bf16": ((TRAIN_ROWS, 2048), b16, f32),
+         "gemma2-27b bf16": ((TRAIN_ROWS, 4608), b16, f32),
          "tail d=300 fp32": ((33 * 7, 300), f32, f32),
          "tail d=300 bf16": ((33 * 7, 300), b16, f32)},
         {"gemma-2b prefill fp32": ((8, 512, 8, 1, 256), dict(causal=True), f32, 1.0),
@@ -1248,21 +1291,68 @@ def visible_pairs(S, causal, window):
     return total
 
 
+def kernel_resources(lib):
+    """{demangled kernel: {"registers", "spill_bytes", "HGMMA", "HMMA"}}
+    of a built library: registers and spill stores from its ``ptxas -v``
+    lines, the tensor-core instructions counted in ``cuobjdump -sass``
+    (None where the toolkit lacks it)."""
+    from repro_torch.kernels import build
+    res, name = {}, None
+    for line in lib.ptxas:
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            res[name] = {"registers": 0, "spill_bytes": 0, "HGMMA": None, "HMMA": None}
+        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
+            res[name]["spill_bytes"] = int(m.group(1))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            res[name]["registers"] = int(m.group(1))
+    tools = Path(build.nvcc()).parent
+    if (tools / "cuobjdump").exists():
+        sass = subprocess.run([str(tools / "cuobjdump"), "-sass", str(lib.path)],
+                              capture_output=True, text=True, timeout=300).stdout
+        for chunk in sass.split("Function : ")[1:]:
+            fn = chunk.split()[0]
+            if fn in res:
+                res[fn]["HGMMA"] = len(re.findall(r"\bHGMMA\b", chunk))
+                res[fn]["HMMA"] = len(re.findall(r"\bHMMA\b", chunk))
+    filt = next((str(f) for f in (tools / "cu++filt", shutil.which("c++filt"))
+                 if f and Path(f).exists()), None)
+    if filt and res:
+        names = subprocess.run([filt], input="\n".join(res), capture_output=True,
+                               text=True, timeout=60).stdout.split("\n")
+        if len(names) >= len(res):
+            res = dict(zip(names, res.values()))
+    return res
+
+
+def bf16_flash_resources(resources, hd):
+    """The entries of ``kernel_resources`` for the bf16 flash kernel at
+    head dim hd: the one whose name says bf16 and whose first template
+    argument is hd (``<hd,`` or ``<(int)hd,`` demangled, ``ILi<hd>E``
+    mangled)."""
+    return {k: r for k, r in resources.items()
+            if "bf16_kernel" in k and re.search(rf"(<|ILi)(\(int\))?{hd}(,|E)", k)}
+
+
 def phase_ops_timing(torch, rms_ops, rms_ref, fa_ops, fa_ref, cases, errs,
                      launches, n=20):
     """Kernel, plain and library times of each full-width case (L2 flushed
-    between calls), against the bound worked out from its shapes, the
-    operations at the card's peak for the inputs' type (fp32 on CUDA
-    cores, bf16 on tensor cores).  The kernels line carries gemma-2b's
-    bf16 rmsnorm and fp32 prefill: the flash kernel computes in fp32, so
-    the fp32 case is the one its bound and SDPA's time describe alike."""
+    and the host's enqueue kept out of the window, see ``time_kernel``),
+    against the bound worked out from its shapes, the operations at the
+    card's peak for the inputs' type (fp32 on CUDA cores, bf16 on tensor
+    cores).  Each bf16 flash case also logs its rate, its time over the
+    fp32 kernel's and SDPA's from this call, and its kernel's registers,
+    spills and tensor-core instructions.  The kernels line carries
+    gemma-2b's bf16 rmsnorm and bf16 prefill, SDPA's time as the
+    latter's library call."""
     import torch.nn.functional as F
     rms, fa = cases
     rows = {}
     for case, (x, s) in rms.items():
         nbytes = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
         flops = 4 * x.numel()          # square, sum, two products
-        ms = time_calls(torch, lambda: rms_ops.rmsnorm(x, s), n)
+        ms, enq = time_kernel(torch, lambda: rms_ops.rmsnorm(x, s), n)
         plain_ms = time_calls(torch, lambda: rms_ref.rmsnorm_ref(x, s), n)
         w = s.to(x.dtype)
         lib = lambda: F.rms_norm(x, (x.shape[-1],), weight=w, eps=1e-6)  # noqa: E731
@@ -1270,18 +1360,20 @@ def phase_ops_timing(torch, rms_ops, rms_ref, fa_ops, fa_ref, cases, errs,
         lib_ms = time_calls(torch, lib, n)
         ms2 = time_calls(torch, lambda: rms_ops.rmsnorm(x, s), n)
         row = kernel_row("rmsnorm", RMS_SOURCE, errs["rmsnorm"][case], ms,
-                         plain_ms, nbytes, flops, lib_ms)
-        log(f"rmsnorm {case} {tuple(x.shape)}: kernel {ms:.4f} / {ms2:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms (scale in "
-            f"x's dtype; max abs err vs plain {lib_err:.3g}), bound "
-            f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({nbytes:,} bytes)")
+                         plain_ms, nbytes, flops, lib_ms, enqueue_ms=enq)
+        log(f"rmsnorm {case} {tuple(x.shape)}: kernel {ms:.4f} / {ms2:.4f} ms "
+            f"(host enqueue {enq:.4f} ms), plain {plain_ms:.4f} ms, F.rms_norm "
+            f"{lib_ms:.4f} ms (scale in x's dtype; max abs err vs plain "
+            f"{lib_err:.3g}), bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+            f"({nbytes:,} bytes), {100 * row['bound_ms'] / ms:.1f} % of it")
         rows[case] = row
+    resources = kernel_resources(fa_ops.library())
     for case, ((q, k, v), kw) in fa.items():
         B, S, H, hd = q.shape
         pairs = visible_pairs(S, kw["causal"], kw.get("window", 0))
         flops = 4 * hd * pairs * B * H         # QK^T and PV, 2 flops an FMA
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        ms = time_calls(torch, lambda: fa_ops.attention(q, k, v, **kw), n)
+        ms, enq = time_kernel(torch, lambda: fa_ops.attention(q, k, v, **kw), n)
         plain_ms = time_calls(torch, lambda: fa_ref.attention_ref(q, k, v, **kw),
                               max(3, n // 4))
         lib_ms, lib_note = None, "no single PyTorch call has softcap"
@@ -1299,22 +1391,39 @@ def phase_ops_timing(torch, rms_ops, rms_ref, fa_ops, fa_ref, cases, errs,
         bf16 = q.dtype == torch.bfloat16
         row = kernel_row("flash_attention", FA_SOURCE,
                          errs["flash_attention"][case], ms, plain_ms, nbytes,
-                         flops, lib_ms, BF16_FLOPS if bf16 else FP32_FLOPS)
-        log(f"flash_attention {case} {kw}: kernel {ms:.4f} / {ms2:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, {lib_note}; bound {row['bound_ms']:.4f} ms by "
-            f"{row['bound_by']} ({flops:,} flops over {pairs:,} visible pairs "
-            f"a head at the {'bf16 tensor-core' if bf16 else 'fp32'} peak, "
-            f"{nbytes:,} bytes); {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+                         flops, lib_ms, BF16_FLOPS if bf16 else FP32_FLOPS,
+                         enqueue_ms=enq)
+        log(f"flash_attention {case} {kw}: kernel {ms:.4f} / {ms2:.4f} ms (host "
+            f"enqueue {enq:.4f} ms), plain {plain_ms:.4f} ms, {lib_note}; bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({flops:,} flops over "
+            f"{pairs:,} visible pairs a head at the "
+            f"{'bf16 tensor-core' if bf16 else 'fp32'} peak, {nbytes:,} bytes); "
+            f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+        if bf16:
+            fp32 = rows[case.replace("bf16", "fp32")]["ms"]
+            vs_lib = f"{ms / lib_ms:.3g}x SDPA's time" if lib_ms else "no SDPA"
+            log(f"  {case}: {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+                f"{ms / fp32:.3g}x the fp32 kernel's time ({fp32:.4f} ms), "
+                f"{vs_lib}; kernel "
+                + "; ".join(f"{k}: {r['registers']} registers, {r['spill_bytes']} "
+                            f"bytes spilled, SASS HGMMA {r['HGMMA']} HMMA {r['HMMA']}"
+                            for k, r in bf16_flash_resources(resources, hd).items()))
         rows[case] = row
         torch.cuda.empty_cache()
     picked = {"rmsnorm": rows["gemma-2b bf16"],
-              "flash_attention": rows["gemma-2b prefill fp32"]}
+              "flash_attention": rows["gemma-2b prefill bf16"]}
     for name, row in picked.items():
         row["launches"] = launches[name]
     return picked
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="On-card smoke run of the port.")
+    ap.add_argument("--ops-only", action="store_true",
+                    help="phase 1 and the op phases 11-14 only (a quick check "
+                         "of the rmsnorm and flash kernels); prints their rows")
+    args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
               "run it from a checkout of the repository", file=sys.stderr)
@@ -1352,45 +1461,49 @@ def main() -> int:
                               lars.ops.LIB_NAME: [lars.ops.SOURCE],
                               rms_ops.LIB_NAME: [rms_ops.SOURCE],
                               fa_ops.LIB_NAME: [fa_ops.SOURCE]})
-    err = phase_kernel(torch, ops, ref)
-    rt = make_runtime("cuda")
-    cfg = get_config(ARCH)
-    params, launches, step_ms = phase_serve(torch, kernels, serve_mod, cfg, rt)
-    phase_path(torch, cfg, params, Runtime, rt.device, serving)
-    del params
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    params32, _ = serve_mod.load_model(cfg32, rt, seed=0)
-    phase_path(torch, cfg32, params32, Runtime, rt.device, serving)
-    del params32
-    row = phase_timing(torch, ops, ref, launches, err, cfg.n_layers, step_ms)
-    t_serve = time.perf_counter()
+    rows, kernel_rows = {}, []
+    t_serve = t_kernels = t_train = t_start
+    if not args.ops_only:
+        err = phase_kernel(torch, ops, ref)
+        rt = make_runtime("cuda")
+        cfg = get_config(ARCH)
+        params, launches, step_ms = phase_serve(torch, kernels, serve_mod, cfg, rt)
+        phase_path(torch, cfg, params, Runtime, rt.device, serving)
+        del params
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        params32, _ = serve_mod.load_model(cfg32, rt, seed=0)
+        phase_path(torch, cfg32, params32, Runtime, rt.device, serving)
+        del params32
+        kernel_rows.append(phase_timing(torch, ops, ref, launches, err,
+                                        cfg.n_layers, step_ms))
+        t_serve = time.perf_counter()
 
-    (p, g, u, a), errs = phase_mt_kernels(torch, mt_ops, mt_ref, cfg)
-    rows = phase_mt_timing(torch, mt_ops, mt_ref, p, g, u, a, errs)
-    del u, a
-    torch.cuda.empty_cache()
-    errs.update(phase_lamb_kernels(torch, mt_ops, mt_ref, p, g))
-    torch.cuda.empty_cache()
-    rows.update(phase_lamb_timing(torch, mt_ops, mt_ref, p, g, errs))
-    torch.cuda.empty_cache()
-    leaves, pl_errs = phase_per_leaf_kernels(torch, sngm, lars, p, g,
-                                             gemma_layout(torch, cfg))
-    rows.update(phase_per_leaf_timing(torch, sngm, lars, leaves, pl_errs))
-    del p, g, leaves
-    torch.cuda.empty_cache()
-    t_kernels = time.perf_counter()
-
-    for run_name in TRAIN_RUNS:
-        run, state, run_launches, step_s = phase_train(torch, kernels,
-                                                       train_mod, run_name)
-        phase_split(torch, run, state, step_s,
-                    sum(TRAIN_RUNS[run_name][3].values()))
-        for name in TRAIN_RUNS[run_name][3]:
-            rows[name]["launches"] = run_launches[name]
-        del run, state
+        (p, g, u, a), errs = phase_mt_kernels(torch, mt_ops, mt_ref, cfg)
+        rows.update(phase_mt_timing(torch, mt_ops, mt_ref, p, g, u, a, errs))
+        del u, a
         torch.cuda.empty_cache()
-    phase_fused_vs_plain(torch, cfg)
-    t_train = time.perf_counter()
+        errs.update(phase_lamb_kernels(torch, mt_ops, mt_ref, p, g))
+        torch.cuda.empty_cache()
+        rows.update(phase_lamb_timing(torch, mt_ops, mt_ref, p, g, errs))
+        torch.cuda.empty_cache()
+        leaves, pl_errs = phase_per_leaf_kernels(torch, sngm, lars, p, g,
+                                                 gemma_layout(torch, cfg))
+        rows.update(phase_per_leaf_timing(torch, sngm, lars, leaves, pl_errs))
+        del p, g, leaves
+        torch.cuda.empty_cache()
+        t_kernels = time.perf_counter()
+
+        for run_name in TRAIN_RUNS:
+            run, state, run_launches, step_s = phase_train(torch, kernels,
+                                                           train_mod, run_name)
+            phase_split(torch, run, state, step_s,
+                        sum(TRAIN_RUNS[run_name][3].values()))
+            for name in TRAIN_RUNS[run_name][3]:
+                rows[name]["launches"] = run_launches[name]
+            del run, state
+            torch.cuda.empty_cache()
+        phase_fused_vs_plain(torch, cfg)
+        t_train = time.perf_counter()
 
     phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
     cases = ops_cases(torch)
@@ -1405,8 +1518,9 @@ def main() -> int:
         f"{t_train - t_kernels:.1f} s, op phases "
         f"{time.perf_counter() - t_train:.1f} s)")
     print(card, flush=True)            # name and power limit, again at the end
-    print(json.dumps({"kernels": [row] + [rows[k] for k in OPT_KERNELS]
-                      + [rows["rmsnorm"], rows["flash_attention"]]}), flush=True)
+    print(json.dumps({"kernels": kernel_rows + [rows[k] for k in OPT_KERNELS
+                                                 + ("rmsnorm", "flash_attention")
+                                                 if k in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

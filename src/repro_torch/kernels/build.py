@@ -33,7 +33,7 @@ class Library:
     path: Path
     seconds: float                      # build (or load) time
     built: bool                         # False: found in the build dir
-    ptxas: List[str] = field(default_factory=list)  # register/spill lines
+    ptxas: List[str] = field(default_factory=list)  # register/spill/wgmma lines
 
 
 _LOADED: Dict[str, Library] = {}
@@ -87,7 +87,7 @@ def build_libraries(specs: Mapping[str, Sequence[Path]]) -> Dict[str, Library]:
         ptxas = [line.strip() for line in
                  (log.read_text().splitlines() if log.exists() else [])
                  if "entry function" in line or "registers" in line
-                 or "spill" in line]
+                 or "spill" in line or "wgmma" in line]
         _LOADED[name] = Library(lib, out, time.perf_counter() - t0,
                                 proc is not None, ptxas)
     if errors:

@@ -6,12 +6,17 @@ the hand-written kernel (``csrc/flash_attention.cu``, built for sm_90a at
 first use) or raises: there is no fallback on the card.  Each launch adds
 one to ``repro_torch.kernels.LAUNCHES["flash_attention"]``.
 
-``q_blk`` and ``kv_blk`` are the kernel's query and key tile sizes; the
-library is built for 64 x 64 only (the TPU kernel's defaults, 256 and
-512, do not fit in a Hopper block's shared memory at fp32).  The plain version does not tile,
-so on the CPU they are not read.  There is no backward, as the TPU
-kernel has none, and no entry point of the port calls it, as none of the
-JAX package calls ``flash_attention``: the models attend with
+``q_blk`` and ``kv_blk`` are the kernel's query and key tile sizes, one
+pair per (dtype, head dim), in ``TILES``; None (the default) takes that
+pair, and any other pair raises.  fp32 runs on CUDA cores in 64 x 64
+tiles (the TPU kernel's defaults, 256 and 512, do not fit in a Hopper
+block's shared memory at fp32); bf16 runs on the tensor cores (wgmma,
+K/V by TMA) with 128 queries a block (64 a warpgroup) and 64 keys a
+tile, 128 at hd 64.  ``smem_bytes`` is the shared memory a block takes,
+as the launcher computes it.  The plain version does not tile, so on the
+CPU the tiles are not read.  There is no backward, as the TPU kernel has
+none, and no entry point of the port calls it, as none of the JAX
+package calls ``flash_attention``: the models attend with
 ``layers._sdpa_seq``.
 """
 from __future__ import annotations
@@ -28,10 +33,25 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 LIB_NAME = "flash_attention"
 HEAD_DIMS = (64, 128, 256)
-TILES = (64,)
-DEFAULT_Q_BLK = 64
-DEFAULT_KV_BLK = 64
+# (q_blk, kv_blk) of each dtype's kernel at each head dim
+TILES = {torch.float32: {hd: (64, 64) for hd in HEAD_DIMS},
+         torch.bfloat16: {64: (128, 128), 128: (128, 64), 256: (128, 64)}}
+DEFAULT_Q_BLK = None               # TILES' pair for the inputs
+DEFAULT_KV_BLK = None
+SMEM_LIMIT = 232448                # shared memory a Hopper block can use
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def smem_bytes(dtype, hd: int, q_blk: int, kv_blk: int) -> int:
+    """Dynamic shared memory of one block, as ``flash_attention.cu``
+    sizes it: fp32, the scaled Q, one K-or-V tile and the probability
+    tile in rows padded by 4 floats, and the row max, sum and alpha;
+    bf16, Q and two stages of K and V tiles, three 8-byte mbarriers, two
+    counts and 1024 bytes to align the tiles."""
+    if dtype == torch.float32:
+        return 4 * (q_blk * (hd + 4) + kv_blk * (hd + 4) + q_blk * (kv_blk + 4)
+                    + 3 * q_blk)
+    return 2 * hd * (q_blk + 2 * 2 * kv_blk) + 32 + 1024
 
 
 def library() -> Library:
@@ -49,6 +69,8 @@ def library() -> Library:
 
 
 def _check(q, k, v, window, q_blk, kv_blk):
+    """Raise on what the kernel does not take; return the (q_blk, kv_blk)
+    to launch with."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -60,29 +82,33 @@ def _check(q, k, v, window, q_blk, kv_blk):
         raise ValueError(f"H={H}, K={K}: need K | H")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd}: the kernel takes {HEAD_DIMS}")
-    if q_blk not in TILES or kv_blk not in TILES:
-        raise ValueError(f"q_blk {q_blk}, kv_blk {kv_blk}: each one of {TILES}")
     if window < 0:
         raise ValueError(f"window {window} < 0")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes q {q.dtype} k {k.dtype} v {v.dtype}: one of "
                         f"{list(_DTYPE_CODES)} for all three")
+    want = TILES[q.dtype][hd]
+    tiles = (want[0] if q_blk is None else q_blk, want[1] if kv_blk is None else kv_blk)
+    if tiles != want:
+        raise ValueError(f"q_blk {q_blk}, kv_blk {kv_blk}: the {q.dtype} kernel "
+                         f"at hd {hd} takes {want}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous() or t.data_ptr() % (4 * t.element_size()):
-            raise ValueError(f"{name} must be contiguous and aligned to 4 elements")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    return tiles
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
-              softcap: float = 0.0, q_blk: int = DEFAULT_Q_BLK,
-              kv_blk: int = DEFAULT_KV_BLK):
+              softcap: float = 0.0, q_blk: int | None = DEFAULT_Q_BLK,
+              kv_blk: int | None = DEFAULT_KV_BLK):
     """q (B, S, H, hd); k/v (B, S, K, hd) with K | H.  Returns (B, S, H,
     hd) in q.dtype."""
     if not on_cuda(q, "flash_attention"):
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
-    _check(q, k, v, window, q_blk, kv_blk)
+    q_blk, kv_blk = _check(q, k, v, window, q_blk, kv_blk)
     B, S, H, hd = q.shape
     o = torch.empty_like(q)
     if B == 0 or S == 0:

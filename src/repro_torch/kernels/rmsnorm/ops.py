@@ -6,8 +6,11 @@ hand-written kernel (``csrc/rmsnorm.cu``, built for sm_90a at first use)
 or raises: there is no fallback on the card.  Each launch adds one to
 ``repro_torch.kernels.LAUNCHES["rmsnorm"]``.
 
-No entry point of the port calls it, as none of the JAX package calls
-``rmsnorm_pallas``: the models normalise with ``layers.rmsnorm``.
+The kernel reads each row once: a warp holds a row of up to 2048 fp32
+or 4096 bf16 in registers, a block stages a wider one in shared memory.
+``load_pack`` picks how many elements one load moves.  No entry point of
+the port calls it, as none of the JAX package calls ``rmsnorm_pallas``:
+the models normalise with ``layers.rmsnorm``.
 """
 from __future__ import annotations
 
@@ -39,6 +42,17 @@ def library() -> Library:
     return built
 
 
+def load_pack(d: int, x: torch.Tensor, scale: torch.Tensor, o: torch.Tensor) -> int:
+    """Elements the kernel moves with one load: 16 bytes of x (4 fp32 or
+    8 bf16), else (bf16) 8 bytes, else 1; the widest that d is a multiple
+    of and that x, o and scale start aligned to."""
+    for pack in (16 // x.element_size(), 4, 1):
+        if d % pack == 0 and all(t.data_ptr() % min(16, pack * t.element_size()) == 0
+                                 for t in (x, scale, o)):
+            return pack
+    return 1
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     """x (..., d), scale (d,) -> x's shape and dtype:
     ``x * rsqrt(mean(x**2, -1) + eps) * scale``, fp32 inside."""
@@ -59,14 +73,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     rows = x.numel() // d
     if rows == 0:
         return o
-    vec = int(d % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
-                                 for t in (x, scale, o)))
+    pack = load_pack(d, x, scale, o)
     lib = library().lib
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.rmsnorm_launch(_DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype],
                                  x.data_ptr(), scale.data_ptr(), o.data_ptr(),
-                                 rows, d, float(eps), vec, stream)
+                                 rows, d, float(eps), pack, stream)
     if err != 0:
         raise RuntimeError(f"rmsnorm launch failed: "
                            f"{lib.rmsnorm_error_string(err).decode()}")

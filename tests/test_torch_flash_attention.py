@@ -7,11 +7,19 @@ non-causal; MHA and GQA), and against the port's own model function
 
 Bounds (those of the JAX package's own tests): fp32 2e-5, bf16 3e-2
 absolute.  The plain version walks the queries in chunks; chunked and
-whole agree to 1e-6 (other matmul shapes sum in other orders).  The CUDA
-kernel against the plain version is the ``cuda``-marked test, which
-skips without a card (and this module imports JAX, which the card's
-machine lacks); ``chip_smoke.py`` makes the same comparisons there,
-over every build variant.
+whole agree to 1e-6 (other matmul shapes sum in other orders).
+
+The bf16 CUDA kernel computes on the tensor cores; ``_bf16_kernel_math``
+below repeats its arithmetic in plain PyTorch (exact bf16 products
+summed in fp32, the scale applied to the fp32 score, an online softmax
+over the kernel's key tiles, P split into two bf16 terms) and holds it
+against the Pallas kernel in interpret mode within the card's bf16
+bound, 2e-5 + 2^-7 max(|y|, |y_ref|), before the card does.  (The
+kernel's exp is the SFU's 2^x, within ~1e-6 of exp where p matters.)  The CUDA kernel against the
+plain version is the ``cuda``-marked test, which skips without a card
+(and this module imports JAX, which the card's machine lacks);
+``chip_smoke.py`` makes the same comparisons there, over every build
+variant.
 """
 import os
 import subprocess
@@ -134,11 +142,114 @@ def test_ops_import_no_jax_and_nothing_of_repro():
     assert out.returncode == 0, out.stderr
 
 
+def _bf16_kernel_math(q, k, v, *, causal=True, window=0, softcap=0.0,
+                      split_p=True):
+    """The bf16 kernel's arithmetic in plain PyTorch, fp32 output (the
+    kernel rounds it to bf16).  q (B, S, H, hd), k/v (B, S, K, hd) bf16."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    bk = ops.TILES[torch.bfloat16][hd][1]
+    scale = hd ** -0.5
+    qf = q.float().permute(0, 2, 1, 3)                      # (B, H, S, hd)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(H // K, dim=1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(H // K, dim=1)
+    s = (qf @ kf.transpose(-1, -2)) * scale                 # exact products
+    if hd != 128:
+        # a power of two commutes with every rounding: the same scores as
+        # q * scale (exact in bf16) folded in before the product
+        qs = (qf * scale).to(torch.bfloat16).float()
+        assert torch.equal(qs, qf * scale)
+        assert torch.equal(s, qs @ kf.transpose(-1, -2))
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    i = torch.arange(S)[:, None]
+    j = torch.arange(S)[None, :]
+    ok = j < S
+    if causal:
+        ok = ok & (j <= i)
+    if window > 0:
+        ok = ok & (j > i - window)
+    s = torch.where(ok, s, -2.0e38)
+    m = torch.full((B, H, S, 1), -2.0e38)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, hd))
+    for k0 in range(0, S, bk):
+        st = s[..., k0:k0 + bk]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        p_hi = p.to(torch.bfloat16).float()
+        vt = vf[:, :, k0:k0 + bk]
+        acc = alpha * acc + p_hi @ vt
+        if split_p:
+            acc = acc + (p - p_hi).to(torch.bfloat16).float() @ vt
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).permute(0, 2, 1, 3)
+
+
+BF16_OPTIONS = OPTIONS + [dict(causal=True, window=40, softcap=30.0),
+                          dict(causal=False, window=40)]
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("kw", BF16_OPTIONS)
+def test_bf16_kernel_math_matches_pallas_interpret(hd, kw):
+    """At S 192 the key tiles are ragged (64: 3 tiles; 128 at hd 64: a
+    full and a half one); q is scaled so the scores reach the softcap."""
+    S = 192
+    arrays = _qkv(1, S, 4, 2, hd, "bfloat16", seed=hd + len(kw))
+    arrays[0] = np.asarray(jnp.asarray(arrays[0] * 2.0).astype(jnp.bfloat16)
+                           .astype(jnp.float32))
+    jx = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrays]
+    want = np.asarray(flash_attention(*jx, q_blk=64, kv_blk=64, interpret=True,
+                                      **kw), np.float32)
+    got = _bf16_kernel_math(*_torch(arrays, "bfloat16"), **kw)
+    got = got.to(torch.bfloat16).float().numpy()
+    bound = TOL["float32"] + 2.0 ** -7 * np.maximum(np.abs(got), np.abs(want))
+    assert (np.abs(got - want) / bound).max() <= 1
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_bf16_kernel_math_needs_the_split_p(hd):
+    """Before the output's rounding the split P holds the fp32 bound
+    (2e-5) against the plain version on the same bf16 inputs; P rounded
+    once to bf16 does not, which is why the kernel multiplies twice."""
+    arrays = _qkv(1, 256, 4, 2, hd, "bfloat16", seed=21)
+    q, k, v = _torch(arrays, "bfloat16")
+    want = attention_ref(q.float(), k.float(), v.float(), window=200)
+    split = _bf16_kernel_math(q, k, v, window=200)
+    once = _bf16_kernel_math(q, k, v, window=200, split_p=False)
+    assert (split - want).abs().max().item() <= TOL["float32"]
+    assert (once - want).abs().max().item() > TOL["float32"]
+
+
+def test_tiles_fit_shared_memory_and_others_raise():
+    """Each (dtype, hd) tile pair fits a Hopper block's 232,448 bytes of
+    shared memory as the launcher sizes it; bf16 takes 128 queries (two
+    warpgroups of 64); any other pair raises before a launch."""
+    assert ops.SMEM_LIMIT == 232448
+    for dtype, by_hd in ops.TILES.items():
+        assert set(by_hd) == set(ops.HEAD_DIMS)
+        for hd, (q_blk, kv_blk) in by_hd.items():
+            assert ops.smem_bytes(dtype, hd, q_blk, kv_blk) <= ops.SMEM_LIMIT
+    assert ops.smem_bytes(torch.float32, 256, 64, 64) == 151296
+    assert ops.smem_bytes(torch.bfloat16, 256, 128, 64) == 196608 + 32 + 1024
+    assert {t[0] for t in ops.TILES[torch.bfloat16].values()} == {128}
+    assert ops.smem_bytes(torch.bfloat16, 256, 128, 128) > ops.SMEM_LIMIT
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 8, 2, 128), dtype=dtype)
+        assert ops._check(q, q, q, 0, None, None) == ops.TILES[dtype][128]
+        with pytest.raises(ValueError, match="takes"):
+            ops._check(q, q, q, 0, 32, None)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_kernel_matches_plain(dtype):
     """fp32 within 2e-5; bf16 within that plus one bf16 step of the value
-    (2^-7 |y|): both round fp32 results that differ by ~1e-6 to bf16."""
+    (2^-7 |y|): both round fp32 results that differ by ~1e-6 to bf16.
+    Every dtype's tiles, hd 64/128/256, ragged S, each mask option."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     for (B, S, H, K, hd) in [(2, 256, 4, 4, 64), (2, 512, 4, 2, 64),
@@ -147,7 +258,7 @@ def test_cuda_kernel_matches_plain(dtype):
         q, k, v = (t.cuda() for t in _torch(_qkv(B, S, H, K, hd, dtype, seed=S), dtype))
         for kw in OPTIONS + [dict(causal=False, window=64)]:
             before = launch_counts()["flash_attention"]
-            got = ops.attention(q, k, v, q_blk=64, kv_blk=64, **kw)
+            got = ops.attention(q, k, v, **kw)            # TILES' pair
             torch.cuda.synchronize()
             assert launch_counts()["flash_attention"] == before + 1
             got, want = got.float(), attention_ref(q, k, v, **kw).float()
