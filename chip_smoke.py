@@ -4,7 +4,8 @@
 Drives the port's paths at the full published widths of gemma-2b
 (random weights drawn on the card from ``PRNGKey(0)``, as the JAX
 package draws them) on one NVIDIA GPU: paged serving, with decode
-attention in a hand-written CUDA kernel; training with SNGM and with
+attention in a hand-written CUDA kernel (split-KV decoding with a
+fixed-order merge); training with SNGM and with
 LAMB on the multi-tensor engine, and with SNGM and LARS on the per-leaf
 path, every optimizer pass a hand-written CUDA kernel; and the RMSNorm
 and flash attention op entry points, each a hand-written CUDA kernel.
@@ -20,7 +21,16 @@ Phases, each raising on failure:
   2. the paged kernel against its plain version on the card, fp32 and
      bf16, over head-group, kv-head, head-dim and block-size grids,
      window and softcap, frontiers on and inside blocks, an inactive
-     row, and the gemma-2b decode shape;
+     row, and the gemma-2b decode shape; then the split design's edges:
+     forced split lengths with boundaries inside pool blocks and
+     frontiers on the first and last position of a split, splits wholly
+     past the frontier and before the window, G = 3, tables of 1 and 512
+     columns, B * K of 1 and 160, out-of-pool block ids, and the three
+     long shapes of phase 5 in fp32 and bf16; every output computed
+     twice, bitwise the same; every bf16 output also within one bf16 step
+     of the value plus the fp32 bound; the gemma2-27b case must fail the
+     plain version with its softcap dropped or its window edge moved by
+     one position;
   3. full-width serving (the time of the on-card ``materialize`` is
      printed): 16 requests arriving two per scheduler round on
      8 slots, four prompts sharing a 256-token prefix, a pool small
@@ -29,7 +39,13 @@ Phases, each raising on failure:
   4. the whole decode path through the kernel against the model's plain
      gather path on the card, teacher-forced on the same tokens, at the
      served bf16 compute and at fp32 compute;
-  5. the paged kernel's timing against its bound;
+  5. the paged kernel's time at four shapes (phase 3's decode shape,
+     gemma-2b at long context, for 8 sequences and for one, and a
+     gemma2-27b local layer) against its
+     byte bound, beside its plain version, gather + SDPA (no softcap
+     only) and ``index_select`` of the live pool blocks, with its split
+     plan and its registers and spills (none allowed; phase 1 fails on a
+     paged spill too);
   6. ``chunk_sumsq`` and ``fused_update`` against their plain versions,
      bitwise: fp32 and bf16, wd 0 and 1e-4, both cast orders, nesterov,
      per-row coefficients, signed zeros, and the full gemma-2b buffer;
@@ -89,6 +105,7 @@ device spin before the start event, so the host's enqueue (logged as
 ``enqueue_ms``) stays out of the window (``time_kernel``).
 
     python3 chip_smoke.py --ops-only    # phases 1 and 11-14: the two ops
+    python3 chip_smoke.py --paged-only  # phases 1, 2 and 5: the paged kernel
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -168,10 +185,12 @@ def phase_card(torch, build, sources):
     t0 = time.perf_counter()
     libs = build.build_libraries(sources)
     log(f"kernel libraries ready in {time.perf_counter() - t0:.2f} s")
-    for lib in libs.values():
+    for name, lib in libs.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", " ".join(lib.ptxas))]
         spills = [line for line in lib.ptxas
                   if re.search(r"[1-9]\d* bytes spill stores", line)]
+        if name == "paged_attention" and spills:
+            raise AssertionError(f"the paged kernel spills: {spills}")
         log(f"{'built' if lib.built else 'loaded'} {lib.path.relative_to(ROOT)} "
             f"in {lib.seconds:.2f} s: {len(regs)} kernels, {min(regs, default=0)}-"
             f"{max(regs, default=0)} registers, {len(spills)} with spills "
@@ -203,12 +222,27 @@ def make_case(torch, B, H, K, hd, bs, nbmax, n_blocks, pos, dtype, seed,
     return q, kp, vp, bt, pos
 
 
-def max_err(torch, ops, ref, case, **kw):
-    o = ops.paged_attention(*case, **kw)
-    r = ref(*case, **kw)
+def max_err(torch, ops, ref, case, split_len=None, ref_case=None, **kw):
+    """max |kernel - plain| on one case.  The kernel runs twice and must
+    give the same bits both times (its merge order is fixed).
+    ``split_len`` forces the splits (``ops.launch_split``; else the
+    wrapper's ``split_plan``); ``ref_case`` is the plain version's input
+    where it differs."""
+    if split_len is None:
+        run = lambda: ops.paged_attention(*case, **kw)  # noqa: E731
+    else:
+        run = lambda: ops.launch_split(*case, split_len=split_len, **kw)  # noqa: E731
+    o, o2 = run(), run()
+    r = ref(*(ref_case or case), **kw)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(o).all()):
         raise AssertionError("kernel output is not finite")
+    if not same_bits(torch, o, o2):
+        raise AssertionError("two calls on the same inputs gave other bits")
+    if o.dtype == torch.bfloat16 and over_bound(torch, o, r, TOL["float32"]) > 1:
+        raise AssertionError(f"bf16 output more than one step plus {TOL['float32']} "
+                             f"from the plain version ({over_bound(torch, o, r, TOL['float32']):.3g}"
+                             f"x that bound)")
     return (o.float() - r.float()).abs().max().item()
 
 
@@ -248,8 +282,142 @@ def phase_kernel(torch, ops, ref):
     if e > TOL["bfloat16"]:
         raise AssertionError(f"gemma-2b decode shape: max abs err {e:.3g}")
     log(f"kernel vs plain at the gemma-2b decode shape (bf16, B=8 H=8 K=1 "
-        f"hd=256 bs=16): max abs err {e:.3g}; {n + 1} cases agree")
+        f"hd=256 bs=16): max abs err {e:.3g}; {n + 1} cases agree, each "
+        f"bitwise the same on a second call")
+    phase_kernel_splits(torch, ops, ref)
     return e
+
+
+def check(torch, ops, ref, what, case, dtype, **kw):
+    """max_err of one case, raising above TOL[dtype]."""
+    e = max_err(torch, ops, ref, case, **kw)
+    if e > TOL[dtype]:
+        raise AssertionError(f"{what} {dtype}: max abs err {e:.3g} > {TOL[dtype]}")
+    return e
+
+
+def phase_kernel_splits(torch, ops, ref):
+    """The split design's edges, each case run twice (same bits) and held
+    to TOL against the plain version: split boundaries inside a pool
+    block, frontiers on the first and the last position of a split,
+    splits wholly past the frontier and wholly before the window, G not a
+    power of two, tables of 1 and 512 columns, B * K of 1 and of 160
+    (more than the card's 132 SMs), block ids outside the pool (read as
+    the scratch block), and the three long cases of phase 5 in fp32 and
+    bf16."""
+    worst, n = {"float32": 0.0, "bfloat16": 0.0}, 0
+    for dtype in ("float32", "bfloat16"):
+        for G, K, hd in ((8, 1, 256), (3, 2, 128), (2, 4, 64)):
+            for bs, split_len in ((16, 24), (16, 16), (4, 6), (16, 40)):
+                nbmax = 8
+                T = nbmax * bs
+                # frontiers: the first and the last position of splits 0-2,
+                # inside a pool block, the last slot, an inactive row
+                pos = [0, split_len - 1, split_len, 2 * split_len - 1,
+                       2 * split_len, 3 * split_len - 1, bs + bs // 2 + 1, T - 1, 0]
+                case = make_case(torch, len(pos), G * K, K, hd, bs, nbmax,
+                                 1 + len(pos) * nbmax + 2, pos, dtype,
+                                 seed=1000 + n, inactive_last=True)
+                for kw in ({}, dict(window=split_len + 1), dict(window=5, softcap=20.0)):
+                    e = check(torch, ops, ref, f"G={G} K={K} hd={hd} bs={bs} split "
+                              f"{split_len} {kw}", case, dtype, split_len=split_len, **kw)
+                    worst[dtype] = max(worst[dtype], e)
+                    n += 1
+        for nbmax, pos in ((1, [0, 7, 15]), (512, [0, 4095, 8191])):
+            case = make_case(torch, len(pos), 8, 1, 256, 16, nbmax,
+                             1 + len(pos) * nbmax, pos, dtype, seed=2000 + n)
+            for kw in ({}, dict(window=100)):
+                e = check(torch, ops, ref, f"table of {nbmax} columns {kw}", case,
+                          dtype, **kw)
+                worst[dtype] = max(worst[dtype], e)
+                n += 1
+        for B, H, K, pos in ((1, 8, 1, [3000]), (20, 8, 8, list(range(20, 420, 20)))):
+            case = make_case(torch, B, H, K, 128, 16, 256, 1 + B * 256, pos, dtype,
+                             seed=3000 + n)
+            e = check(torch, ops, ref, f"B*K={B * K}", case, dtype)
+            worst[dtype] = max(worst[dtype], e)
+            n += 1
+        q, kp, vp, bt, pos = make_case(torch, 3, 8, 2, 128, 16, 6, 1 + 18 + 2,
+                                       [90, 40, 70], dtype, seed=4000 + n)
+        bad = bt.clone()
+        bad[0, 1], bad[1, 0], bad[2, 4] = kp.shape[0] + 7, -3, kp.shape[0]
+        clamped = torch.where((bad < 0) | (bad >= kp.shape[0]), 0, bad)
+        e = check(torch, ops, ref, "out-of-pool block ids", (q, kp, vp, bad, pos),
+                  dtype, ref_case=(q, kp, vp, clamped, pos))
+        worst[dtype] = max(worst[dtype], e)
+        n += 1
+    for dtype in ("float32", "bfloat16"):
+        for name, (case, kw) in long_cases(torch, seed=3, dtype=dtype).items():
+            e = check(torch, ops, ref, name, case, dtype, **kw)
+            worst[dtype] = max(worst[dtype], e)
+            n += 1
+            if "softcap" in kw:
+                faulty_plain_fails(torch, ops, ref, name, case, kw)
+            del case
+            torch.cuda.empty_cache()
+    log(f"split edges: {n} cases agree with the plain version, each bitwise the "
+        f"same on a second call; max abs err fp32 {worst['float32']:.3g}, bf16 "
+        f"{worst['bfloat16']:.3g}")
+
+
+def faulty_plain_fails(torch, ops, ref, name, case, kw):
+    """The window/softcap case can fail a wrong kernel: the plain version
+    with the softcap dropped, or the window edge moved by one position
+    either way, must break the bound against the kernel's output."""
+    o = ops.paged_attention(*case, **kw)
+    tol = TOL[str(o.dtype).split(".")[-1]]
+    shares = {}
+    for fault, kw_bad in {"no softcap": dict(kw, softcap=0.0),
+                          "window + 1": dict(kw, window=kw["window"] + 1),
+                          "window - 1": dict(kw, window=kw["window"] - 1)}.items():
+        shares[fault] = (o.float() - ref(*case, **kw_bad).float()).abs().max().item()
+        if shares[fault] <= tol:
+            raise AssertionError(f"{name}: the plain version with {fault} passes "
+                                 f"against the kernel ({shares[fault]:.3g})")
+    log(f"  {name}: a kernel with a fault would fail: the plain version with "
+        + ", ".join(f"{f} is {e:.3g}" for f, e in shares.items())
+        + f" from the kernel's output ({o.dtype}, bound {tol})")
+
+
+def long_cases(torch, seed, dtype="bfloat16"):
+    """Phase 5's three long cases, each with its keyword arguments.
+    gemma-2b at long context: B 8, H 8, K 1, hd 256, 512 columns of 16,
+    frontiers 8000-8191 (66 MB of K and V in bf16); the same for one
+    sequence at 8191 (128 splits: the merge's two levels).  A gemma2-27b
+    local layer:
+    B 8, H 32, K 16, hd 128, window 4096, softcap 50, frontiers 6000-8191,
+    q scaled to scores of std 2; at the window's edge (the first position
+    inside and the last outside) and 7 positions before the frontier, each
+    kv head's key is set so that its G queries score 40, 40 and 35 there,
+    so moving the edge by one position or dropping the softcap moves the
+    output by far more than the bound."""
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    fr2 = (8000 + torch.randint(0, 192, (8,), generator=g)).tolist()
+    fr2[:2] = [8000, 8191]
+    fr27 = (6000 + torch.randint(0, 2192, (8,), generator=g)).tolist()
+    fr27[:2] = [6000, 8191]
+    cases = {"gemma-2b long": (make_case(torch, 8, 8, 1, 256, 16, 512, 1 + 8 * 512,
+                                         fr2, dtype, seed), {}),
+             "gemma-2b long, one sequence": (make_case(
+                 torch, 1, 8, 1, 256, 16, 512, 1 + 512, [8191], dtype, seed + 2), {})}
+    q, kp, vp, bt, pos = make_case(torch, 8, 32, 16, 128, 16, 512, 1 + 8 * 512,
+                                   fr27, dtype, seed + 1)
+    window, softcap = 4096, 50.0
+    q = (Q_SCALE_LOCAL * q.float()).to(q.dtype)
+    B, H, hd = q.shape
+    K, G = kp.shape[2], H // kp.shape[2]
+    qg = q.float().reshape(B, K, G, hd)
+    gram_inv = torch.linalg.inv(qg @ qg.transpose(-1, -2))           # (B, K, G, G)
+    for offset, score in ((window, 40.0), (window - 1, 40.0), (7, 35.0)):
+        want = torch.full((B, K, G, 1), score / hd ** -0.5, device="cuda")
+        k = (qg.transpose(-1, -2) @ gram_inv @ want)[..., 0]         # (B, K, hd)
+        t = (pos.long() - offset).tolist()
+        for b in range(B):
+            kp[bt[b, t[b] // 16], t[b] % 16] = k[b].to(kp.dtype)
+    cases["gemma2-27b local"] = ((q, kp, vp, bt, pos),
+                                 dict(window=window, softcap=softcap))
+    return cases
 
 
 def decode_case(torch, seed):
@@ -416,48 +584,114 @@ def time_calls(torch, fn, n=50, flush_bytes=128 << 20):
     return time_kernel(torch, fn, n, flush_bytes)[0]
 
 
-def phase_timing(torch, ops, ref, launches, err, n_layers, step_ms):
-    import torch.nn.functional as F
-    q, kp, vp, bt, pos = decode_case(torch, seed=2)
+PAGED_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
+
+
+def paged_work(torch, case, kw):
+    """(bytes, flops) the function needs on this case: each live K and V
+    row read once, q read and o written once, the table and frontiers;
+    4 flops (QK and PV, 2 a FMA) per live position, head and element."""
+    q, kp, vp, bt, pos = case
     B, H, hd = q.shape
     _, bs, K, _ = kp.shape
-    G = H // K
-    live = (pos.long() + 1).clamp(max=bt.shape[1] * bs)      # positions read
-    n_t = int(live.sum())
+    hi = pos.long().clamp(max=bt.shape[1] * bs - 1)
+    lo = (pos.long() - kw.get("window", 0) + 1).clamp(min=0) if kw.get("window") else 0
+    n_t = int((hi - lo + 1).sum())
     item = q.element_size()
-    nbytes = (2 * n_t * K * hd * item + 2 * q.numel() * item
-              + bt.numel() * 4 + pos.numel() * 4)
-    flops = 4 * n_t * K * G * hd              # QK and PV, 2 flops per FMA
-    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations"
+    nbytes = 2 * n_t * K * hd * item + 2 * q.numel() * item + bt.numel() * 4 + pos.numel() * 4
+    return nbytes, 4 * n_t * K * (H // K) * hd
 
-    T = bt.shape[1] * bs
-    valid = torch.arange(T, device="cuda")[None, :] <= pos[:, None].long()
 
-    def library():                          # gather + SDPA: the yardstick
-        kd = kp[bt.long()].reshape(B, T, K, hd).transpose(1, 2)
-        vd = vp[bt.long()].reshape(B, T, K, hd).transpose(1, 2)
-        return F.scaled_dot_product_attention(
-            q[:, :, None], kd, vd, attn_mask=valid[:, None, None, :],
-            enable_gqa=True)[:, :, 0]
+def block_copy(torch, case, kw):
+    """(ms, bytes) of ``index_select`` copying the pool blocks that hold
+    live positions, K and V: the rate at which a PyTorch call moves
+    these blocks in their scattered order, beside the kernel's."""
+    q, kp, vp, bt, pos = case
+    bs = kp.shape[1]
+    cols = torch.arange(bt.shape[1], device=bt.device)[None, :]
+    hi = pos.long()[:, None] // bs
+    lo = ((pos.long() - kw["window"] + 1).clamp(min=0) // bs)[:, None] if kw.get("window") else 0
+    ids = bt[(cols <= hi) & (cols >= lo)].long()
+    ms = time_calls(torch, lambda: (kp.index_select(0, ids), vp.index_select(0, ids)))
+    return ms, 4 * ids.numel() * kp[0].numel() * kp.element_size()
 
-    lib_err = (library().float() - ref(q, kp, vp, bt, pos).float()).abs().max().item()
-    ms, enq = time_kernel(torch, lambda: ops.paged_attention(q, kp, vp, bt, pos))
-    plain_ms = time_calls(torch, lambda: ref(q, kp, vp, bt, pos))
-    library_ms = time_calls(torch, library)
-    ms2 = time_calls(torch, lambda: ops.paged_attention(q, kp, vp, bt, pos))
-    log(f"paged_decode_attention at the decode shape: kernel {ms:.4f} / "
-        f"{ms2:.4f} ms, plain {plain_ms:.4f} ms, gather+SDPA {library_ms:.4f} ms "
-        f"(max abs err vs plain {lib_err:.3g}), bound {bound_s * 1e3:.4f} ms by "
-        f"{bound_by} ({nbytes} bytes, {flops} flops); host enqueue {enq:.4f} ms; "
-        f"{n_layers} launches take {100 * n_layers * ms / step_ms:.1f} % of a "
-        f"{step_ms:.2f} ms decode step")
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
-            "replaces": "src/repro/kernels/paged_attention/kernel.py:88",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-            "bound_by": bound_by, "library_ms": library_ms, "enqueue_ms": enq}
+
+def paged_resources(torch, ops, dtype, hd, G):
+    """Registers and spill bytes of the instantiation a case runs, from
+    the library's ptxas lines (``kernel_resources``)."""
+    gp = 1 << (G - 1).bit_length()
+    tname = "bf16" if dtype == torch.bfloat16 else "float"
+    res = kernel_resources(ops.library())
+    hits = [r for k, r in res.items() if "paged_split_kernel" in k and (
+        re.search(rf"{tname}\w*, (\(int\))?{hd}, (\(int\))?{gp}>", k)
+        or re.search(rf"{'bf16_tE' if tname == 'bf16' else 'If'}Li{hd}ELi{gp}E", k))]
+    return hits[0] if len(hits) == 1 else None
+
+
+def phase_timing(torch, ops, ref, launches, err, n_layers, step_ms):
+    """The paged kernel's time at four shapes: phase 3's decode shape
+    (the kernels line's row) and the bf16 ``long_cases``, each beside its
+    plain version, gather + SDPA (no softcap only), its byte bound and
+    the share of it, its split plan and its instantiation's registers
+    and spills (none allowed)."""
+    import torch.nn.functional as F
+    shapes = {"decode": (decode_case(torch, seed=2), {})}
+    shapes.update(long_cases(torch, seed=4))
+    row = None
+    for name, (case, kw) in shapes.items():
+        q, kp, vp, bt, pos = case
+        B, H, hd = q.shape
+        _, bs, K, _ = kp.shape
+        G, T = H // K, bt.shape[1] * bs
+        nbytes, flops = paged_work(torch, case, kw)
+        bound_s = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
+        bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations"
+        split_len, n_split = ops.split_plan(T, bs, B * K, ops.sm_count(q.device))
+        res = paged_resources(torch, ops, q.dtype, hd, G)
+        if res is None or res["spill_bytes"]:
+            raise AssertionError(f"{name}: its kernel's ptxas lines {res}: no spills allowed")
+        call = lambda: ops.paged_attention(q, kp, vp, bt, pos, **kw)  # noqa: E731
+        lib_ms, lib_note = None, "no single PyTorch call has softcap"
+        if "softcap" not in kw:
+            valid = torch.arange(T, device="cuda")[None, :] <= pos[:, None].long()
+            if kw.get("window"):
+                valid &= torch.arange(T, device="cuda")[None, :] > pos[:, None].long() - kw["window"]
+
+            def library():                          # gather + SDPA: the yardstick
+                kd = kp[bt.long()].reshape(B, T, K, hd).transpose(1, 2)
+                vd = vp[bt.long()].reshape(B, T, K, hd).transpose(1, 2)
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], kd, vd, attn_mask=valid[:, None, None, :],
+                    enable_gqa=True)[:, :, 0]
+            lib_err = (library().float() - ref(*case, **kw).float()).abs().max().item()
+            lib_ms = time_calls(torch, library)
+            lib_note = f"gather+SDPA {lib_ms:.4f} ms (max abs err vs plain {lib_err:.3g})"
+        ms, enq = time_kernel(torch, call)
+        ms2 = time_calls(torch, call)
+        plain_ms = time_calls(torch, lambda: ref(*case, **kw), n=10)
+        copy_ms, copy_bytes = block_copy(torch, case, kw)
+        log(f"paged_decode_attention {name} (B {B} H {H} K {K} hd {hd} bs {bs}, "
+            f"{bt.shape[1]} columns, frontiers {int(pos.min())}-{int(pos.max())}, {kw}): "
+            f"kernel {ms:.4f} / {ms2:.4f} ms (host enqueue {enq:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, {lib_note}; bound {bound_s * 1e3:.4f} ms by {bound_by} "
+            f"({nbytes:,} bytes, {flops:,} flops), {100 * bound_s * 1e3 / ms:.1f} % of "
+            f"it; split_len {split_len}, n_split {n_split}, {B * K * n_split} blocks; "
+            f"{res['registers']} registers, {res['spill_bytes']} bytes spilled; "
+            f"index_select of the live pool blocks {copy_ms:.4f} ms, "
+            f"{copy_bytes / copy_ms / 1e9:.3f} TB/s counting reads and writes")
+        if name == "decode" and step_ms:
+            log(f"  {n_layers} launches take {100 * n_layers * ms / step_ms:.1f} % of "
+                f"a {step_ms:.2f} ms decode step")
+        if name == "decode":
+            row = {"name": "paged_decode_attention", "route": "cuda",
+                   "source": PAGED_SOURCE,
+                   "replaces": "src/repro/kernels/paged_attention/kernel.py:88",
+                   "launches": launches, "max_abs_err": err, "ms": ms,
+                   "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+                   "bound_by": bound_by, "library_ms": lib_ms, "enqueue_ms": enq}
+        del case, q, kp, vp
+        torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1423,6 +1657,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ops-only", action="store_true",
                     help="phase 1 and the op phases 11-14 only (a quick check "
                          "of the rmsnorm and flash kernels); prints their rows")
+    ap.add_argument("--paged-only", action="store_true",
+                    help="phases 1, 2 and 5 only (a quick check of the paged "
+                         "kernel); prints its row")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
@@ -1455,15 +1692,20 @@ def main(argv=None) -> int:
     sngm = SimpleNamespace(ops=sngm_ops, ref=sngm_ref)
     lars = SimpleNamespace(ops=lars_ops, ref=lars_ref)
     t_start = time.perf_counter()
-    card = phase_card(torch, build, {"paged_attention": [ops.SOURCE],
-                              mt_ops.LIB_NAME: [mt_ops.SOURCE],
-                              sngm.ops.LIB_NAME: [sngm.ops.SOURCE],
-                              lars.ops.LIB_NAME: [lars.ops.SOURCE],
-                              rms_ops.LIB_NAME: [rms_ops.SOURCE],
-                              fa_ops.LIB_NAME: [fa_ops.SOURCE]})
+    libs = {"paged_attention": [ops.SOURCE]}
+    if not args.paged_only:
+        libs.update({mt_ops.LIB_NAME: [mt_ops.SOURCE],
+                     sngm.ops.LIB_NAME: [sngm.ops.SOURCE],
+                     lars.ops.LIB_NAME: [lars.ops.SOURCE],
+                     rms_ops.LIB_NAME: [rms_ops.SOURCE],
+                     fa_ops.LIB_NAME: [fa_ops.SOURCE]})
+    card = phase_card(torch, build, libs)
     rows, kernel_rows = {}, []
     t_serve = t_kernels = t_train = t_start
-    if not args.ops_only:
+    if args.paged_only:
+        err = phase_kernel(torch, ops, ref)
+        kernel_rows.append(phase_timing(torch, ops, ref, None, err, 0, None))
+    elif not args.ops_only:
         err = phase_kernel(torch, ops, ref)
         rt = make_runtime("cuda")
         cfg = get_config(ARCH)
@@ -1505,13 +1747,14 @@ def main(argv=None) -> int:
         phase_fused_vs_plain(torch, cfg)
         t_train = time.perf_counter()
 
-    phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
-    cases = ops_cases(torch)
-    outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)
-    ops_errs = phase_ops_check(torch, rms_ref, fa_ref, layers, cases, outs)
-    del outs
-    rows.update(phase_ops_timing(torch, rms_ops, rms_ref, fa_ops, fa_ref, cases,
-                                 ops_errs, ops_launches))
+    if not args.paged_only:
+        phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
+        cases = ops_cases(torch)
+        outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)
+        ops_errs = phase_ops_check(torch, rms_ref, fa_ref, layers, cases, outs)
+        del outs
+        rows.update(phase_ops_timing(torch, rms_ops, rms_ref, fa_ops, fa_ref, cases,
+                                     ops_errs, ops_launches))
     log(f"total {time.perf_counter() - t_start:.1f} s (serving phases "
         f"{t_serve - t_start:.1f} s, optimizer kernel phases "
         f"{t_kernels - t_serve:.1f} s, training phases "
