@@ -6,10 +6,13 @@ Drives the port's paths at the full published widths of gemma-2b
 package draws them) on one NVIDIA GPU: paged serving, with decode
 attention in a hand-written CUDA kernel (split-KV decoding with a
 fixed-order merge); training with SNGM and with
-LAMB on the multi-tensor engine, and with SNGM and LARS on the per-leaf
-path, every optimizer pass a hand-written CUDA kernel; and the RMSNorm
-and flash attention op entry points, each a hand-written CUDA kernel.
-Holds every kernel (10) against its plain PyTorch version.
+LAMB on the multi-tensor engine, with SNGM and LARS on the per-leaf
+path, and with three gradient-transform chains compiled onto the engine
+(a clip before the chain, mid-chain, and after the schedule, the last
+through ``fused_update``'s deferred apply), every optimizer pass a
+hand-written CUDA kernel; and the RMSNorm and flash attention op entry
+points, each a hand-written CUDA kernel.  Holds every kernel (11 rows:
+the deferred apply has its own) against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -96,7 +99,30 @@ Phases, each raising on failure:
      window or softcap only); for each bf16 flash case its TFLOP/s, its
      time over the fp32 kernel's and SDPA's, and its kernel's registers,
      spills and tensor-core instructions (``cuobjdump -sass``);
- 15. one JSON line of kernel timings against their bounds (10 kernels;
+ 15. ``fused_update(apply=False)`` (the deferred apply a trailing clip
+     runs) against its plain version, bitwise: phase 6's grid, fp32
+     updates beside bf16 params (what a promoting chain stage hands the
+     engine; also the apply mode and the decayed norm), and the full
+     gemma-2b buffer in fp32 and bf16; p keeps its bits and a second call
+     gives the same bits; then its time on that buffer against its bound
+     and, in turns, the apply kernel's;
+ 16. full-width training through the launcher's functions (phase 9's
+     batch) for three chains compiled with ``compile_chain(tx,
+     fused="multi_tensor")``, 3 steps each, the launch counts set to 0
+     just before each and read just after: a clip before adw ->
+     normalize -> trace -> schedule (2 ``chunk_sumsq`` + 1
+     ``fused_update`` a step), a clip mid-chain (1 + 1), a clip after the
+     schedule (1 ``chunk_sumsq`` + 1 deferred ``fused_update`` + 1
+     ``scale_apply``), each the plan's launch count; losses, stats, the
+     trailing clip's factor (it must act), peak memory, and each chain's
+     optimizer step against plain SNGM's on the same buffers;
+ 17. each chain on the engine against the port's interpreter
+     (``compile_chain(tx, interpret=True)``) from one state on the same
+     full-width gradients, 3 steps, fp32 and bf16 params, within the JAX
+     grid's bound for clipped chains (fp32 rtol 5e-4 / atol 1e-6, bf16
+     rtol 5e-2 / atol 1e-2), and whether bitwise (depth cut to 2 layers,
+     as in phase 10);
+ 18. one JSON line of kernel timings against their bounds (11 rows;
      flash attention's row is the bf16 gemma-2b prefill), then the JSON
      result line.
 
@@ -106,6 +132,7 @@ device spin before the start event, so the host's enqueue (logged as
 
     python3 chip_smoke.py --ops-only    # phases 1 and 11-14: the two ops
     python3 chip_smoke.py --paged-only  # phases 1, 2 and 5: the paged kernel
+    python3 chip_smoke.py --chains-only # phases 1 and 15-17: the chains
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -701,6 +728,7 @@ def phase_timing(torch, ops, ref, launches, err, n_layers, step_ms):
 MT_SOURCE = "src/repro_torch/kernels/multi_tensor/csrc/multi_tensor.cu"
 REPLACES = {"chunk_sumsq": "src/repro/kernels/multi_tensor/kernel.py:156",
             "fused_update": "src/repro/kernels/multi_tensor/kernel.py:211",
+            "fused_update_deferred": "src/repro/kernels/multi_tensor/kernel.py:211",
             "scale_apply": "src/repro/kernels/multi_tensor/kernel.py:273",
             "adam_update": "src/repro/kernels/multi_tensor/kernel.py:340",
             "fused_sngm_update": "src/repro/kernels/fused_sngm/kernel.py:41",
@@ -1111,8 +1139,9 @@ def phase_per_leaf_timing(torch, sngm, lars, leaves, errs, n=20):
 # phase 9: full-width training, each slice's main path
 # ---------------------------------------------------------------------------
 
-OPT_KERNELS = ("chunk_sumsq", "fused_update", "adam_update", "scale_apply",
-               "fused_sngm_update", "lars_sqnorm", "lars_update")
+OPT_KERNELS = ("chunk_sumsq", "fused_update", "fused_update_deferred",
+               "adam_update", "scale_apply", "fused_sngm_update", "lars_sqnorm",
+               "lars_update")
 # (what, launcher flags, steps, kernel launches per step): each slice's path
 TRAIN_RUNS = {
     "sngm": ("SNGM on the engine", ["--optimizer", "sngm", "--fused", "multi_tensor"],
@@ -1300,6 +1329,365 @@ def phase_fused_vs_plain(torch, cfg, n_layers=2):
         f"gradients (params, optimizer slots, stats), fp32 and bf16 params, "
         f"gemma-2b widths at {n_layers} layers: "
         f"{'; '.join(sorted(set(checked)))}")
+
+
+# ---------------------------------------------------------------------------
+# phases 15-17: gradient-transform chains on the engine, and fused_update's
+# deferred apply
+# ---------------------------------------------------------------------------
+
+def chain_builders():
+    """The three chains of this phase over the port's transform module:
+    a clip before the chain's head (compiled as its clip round), a clip
+    mid-chain (prefix stages, then an msgd tail with the clip round), a
+    clip after the schedule (the deferred apply), as
+    ``tests/test_chain_differential.py:376-389`` builds the last two; the
+    trailing clip's 0.01 is far below lr * ||u|| at gemma-2b, so it acts."""
+    from repro_torch.core import transform as T
+
+    def clip_prefix(sched):
+        return T.chain(T.clip_by_global_norm(1.0), T.add_decayed_weights(1e-4),
+                       T.normalize_by_global_norm(), T.trace(0.9),
+                       T.scale_by_schedule(sched))
+
+    def clip_mid(sched):
+        return T.chain(T.add_decayed_weights(1e-4), T.normalize_by_global_norm(),
+                       T.clip_by_global_norm(5.0), T.trace(0.9),
+                       T.scale_by_schedule(sched))
+
+    def clip_trailing(sched):
+        return T.chain(T.add_decayed_weights(1e-4), T.normalize_by_global_norm(),
+                       T.trace(0.9), T.scale_by_schedule(sched),
+                       T.clip_by_global_norm(0.01))
+    return {"clip_prefix": clip_prefix, "clip_mid": clip_mid,
+            "clip_trailing": clip_trailing}
+
+
+# each chain's kernel launches per step on the one fp32 bucket of gemma-2b
+CHAIN_LAUNCHES = {
+    "clip_prefix": {"chunk_sumsq": 2, "fused_update": 1},
+    "clip_mid": {"chunk_sumsq": 1, "fused_update": 1},
+    "clip_trailing": {"chunk_sumsq": 1, "fused_update_deferred": 1,
+                      "scale_apply": 1},
+}
+
+
+def deferred_compare(torch, ops, ref, p, g, u, a, errs, rows=1 << 16,
+                     again=True, **kw):
+    """fused_update(apply=False) against its plain version, bitwise, rows
+    at a time; p must come back with the same bits, and (``again``) a
+    second call on the same inputs must give the same bits."""
+    c = torch.tensor(0.37)
+    p0 = p.clone()
+    ku = u.clone()
+    ko, kq = ops.fused_update(p, g, ku, a, c, apply=False, **kw)
+    step = rows * 1024
+    where = f"{p.dtype} p, {g.dtype} g, {kw}, {p.numel():,} elements"
+    for lo in range(0, p.numel(), step):
+        sl = slice(lo, min(lo + step, p.numel()))
+        rl = slice(lo // 1024, sl.stop // 1024)
+        same_or_raise(torch, "fused_update_deferred", zip(
+            (ko[sl], ku[sl], kq[rl]),
+            ref.fused_update_ref(p0[sl], g[sl], u[sl], a[rl], c, apply=False,
+                                 **kw)), errs, where)
+    if not same_bits(torch, p, p0):
+        raise AssertionError(f"the deferred fused_update wrote p ({where})")
+    del p0
+    if again:
+        ku2 = u.clone()
+        ko2, kq2 = ops.fused_update(p, g, ku2, a, c, apply=False, **kw)
+        if not all(same_bits(torch, x, y) for x, y in
+                   ((ko, ko2), (ku, ku2), (kq, kq2))):
+            raise AssertionError(f"a second deferred call differs ({where})")
+    torch.cuda.synchronize()
+
+
+def phase_chain_kernels(torch, ops, ref, cfg):
+    """Phase 15: the deferred apply against its plain version on phase 6's
+    grid, with fp32 updates beside bf16 params (what a promoting chain
+    stage hands the engine) in both modes and in the decayed norm pass,
+    then on the full gemma-2b buffer in fp32 and bf16."""
+    errs = {"fused_update_deferred": 0.0, "fused_update": 0.0,
+            "chunk_sumsq": 0.0}
+    n_cases = 0
+    for dtype in ("float32", "bfloat16"):
+        for seed, signed_zeros in ((0, False), (1, True)):
+            p, g, u, a = mt_inputs(torch, 4 * ref.TILE, dtype, seed, signed_zeros)
+            for wd in (0.0, 1e-4):
+                for cast_g_first in (False, True):
+                    for nesterov in (False, True):
+                        deferred_compare(torch, ops, ref, p, g, u, a, errs,
+                                         beta=0.9, wd=wd,
+                                         cast_g_first=cast_g_first,
+                                         nesterov=nesterov)
+                        n_cases += 1
+            if dtype == "bfloat16":            # fp32 updates, bf16 params
+                g32 = (g.float() * 1.37).contiguous()
+                for nesterov in (False, True):
+                    deferred_compare(torch, ops, ref, p, g32, u, a, errs,
+                                     beta=0.9, wd=1e-2, nesterov=nesterov)
+                    mt_compare(torch, ops, ref, p, g32, u, a, errs, beta=0.9,
+                               wd=1e-2, nesterov=nesterov)
+                    n_cases += 2
+    n = gemma_layout(torch, cfg).buckets[0].n_elems
+    for dtype in ("float32", "bfloat16"):
+        p, g, u, a = mt_inputs(torch, n, dtype, seed=5)
+        a.fill_(1.0 / 300.0)                   # SNGM's one global coefficient
+        deferred_compare(torch, ops, ref, p, g, u, a, errs, beta=0.9, wd=1e-4)
+        del p, g, u, a
+        torch.cuda.empty_cache()
+    log(f"fused_update(apply=False) equals its plain version bitwise in "
+        f"{n_cases} cases of 262,144 elements (fp32/bf16, wd 0/1e-4, both cast "
+        f"orders, nesterov, signed zeros; fp32 updates beside bf16 params, "
+        f"apply on and off and the decayed norm) and on the full gemma-2b "
+        f"buffer of {n:,} elements in fp32 and bf16 (sngm, wd 1e-4); p keeps "
+        f"its bits, a second call gives the same bits; max abs diff {errs}")
+    return errs
+
+
+def phase_chain_timing(torch, ops, ref, cfg, errs, n=20):
+    """The deferred kernel on the full gemma-2b buffer as the trailing
+    clip's pass 2 runs it (fp32, wd 1e-4), against its bound, its plain
+    version and the apply kernel on the same inputs (in turns); and the
+    bf16-params variant."""
+    n_el = gemma_layout(torch, cfg).buckets[0].n_elems
+    n_rows = n_el // 1024
+    c, wd = torch.tensor(1.6), 1e-4
+    p, g, u, a = mt_inputs(torch, n_el, "float32", seed=6)
+    a.fill_(1.0 / 300.0)
+    out = torch.empty(n_el, dtype=torch.float32, device="cuda")
+    deferred = lambda: ops.fused_update(p, g, u, a, c, beta=0.9, wd=wd,  # noqa: E731
+                                        apply=False, out=out)
+    apply = lambda: ops.fused_update(p, g, u, a, c, beta=0.9, wd=wd)  # noqa: E731
+    ms, enq = time_kernel(torch, deferred, n)
+    apply_ms = time_calls(torch, apply, n)
+    apply_ms2 = time_calls(torch, apply, n)
+    ms2 = time_calls(torch, deferred, n)
+    slices = parts(n_el, 4)
+    plain_ms = time_calls(torch, lambda: [ref.fused_update_ref(
+        p[sl], g[sl], u[sl], a[sl.start // 1024:sl.stop // 1024], c, beta=0.9,
+        wd=wd, apply=False) for sl in slices], 5)
+    # reads p (for the decay), g, u, a; writes out, u and the row sums
+    nbytes = 5 * 4 * n_el + 2 * 4 * n_rows
+    row = kernel_row("fused_update_deferred", MT_SOURCE,
+                     errs["fused_update_deferred"], ms, plain_ms, nbytes,
+                     9 * n_el, enqueue_ms=enq)
+    apply_bound = (5 * 4 * n_el + 2 * 4 * n_rows) / HBM_BYTES_PER_S * 1e3
+    log(f"fused_update(apply=False) on {n_el:,} fp32 elements (wd 1e-4): kernel "
+        f"{ms:.3f} / {ms2:.3f} ms (host enqueue {enq:.4f} ms), plain "
+        f"{plain_ms:.3f} ms, bound {row['bound_ms']:.3f} ms by bytes ({nbytes:,} "
+        f"bytes: p, g, u read, out, u written), {100 * row['bound_ms'] / ms:.1f} % "
+        f"of it; apply=True on the same inputs {apply_ms:.3f} / {apply_ms2:.3f} ms "
+        f"(bound {apply_bound:.3f}); no single PyTorch call computes it")
+    del p, g, u, a, out
+    torch.cuda.empty_cache()
+    p, g, u, a = mt_inputs(torch, n_el, "bfloat16", seed=7)
+    a.fill_(1.0 / 300.0)
+    bf_ms = time_calls(torch, lambda: ops.fused_update(
+        p, g, u, a, c, beta=0.9, wd=wd, apply=False), n)
+    bf_bound = (2 * 2 * n_el + 3 * 4 * n_el + 2 * 4 * n_rows) / HBM_BYTES_PER_S * 1e3
+    log(f"fused_update(apply=False), bf16 params and updates on {n_el:,} "
+        f"elements: {bf_ms:.3f} ms, bound {bf_bound:.3f} ms by bytes (p, g 2 B; "
+        f"u, out 4 B), {100 * bf_bound / bf_ms:.1f} % of it")
+    del p, g, u, a
+    torch.cuda.empty_cache()
+    return row
+
+
+def chain_run(torch, train_mod, name, steps=3):
+    """The launcher's full-width gemma-2b run (phase 9's batch) with its
+    optimizer replaced by the chain ``name`` compiled onto the engine."""
+    from repro_torch.core import schedules as S
+    from repro_torch.core import transform as T
+    from repro_torch.models import make_runtime
+    from repro_torch.training import make_train_step
+    args = train_mod.parse_args(
+        ["--arch", ARCH, "--steps", str(steps), "--batch", "8", "--seq", "512",
+         "--n-micro", "2", "--weight-decay", "1e-4", "--log-every", "1",
+         "--device", "cuda", "--seed", "0", "--optimizer", "sngm",
+         "--fused", "multi_tensor"])
+    run = train_mod.build(args)
+    sched = S.poly_power(args.lr, args.steps, 1.1)
+    opt = T.compile_chain(chain_builders()[name](sched), fused="multi_tensor")
+    state = opt.init_state(run.state.params_view)
+    run = dataclasses.replace(
+        run, opt=opt, state=state,
+        step=make_train_step(run.cfg, make_runtime("cuda", remat=True), opt,
+                             n_micro=args.n_micro))
+    return args, run
+
+
+def fmt_all(recs, key, spec):
+    return ", ".join(format(m[key], spec) for m in recs)
+
+
+def phase_chain_train(torch, kernels, train_mod, name):
+    """Phase 16: 3 steps of full-width gemma-2b training with the chain on
+    the engine, launch counts set to 0 just before and read just after
+    (each kernel of the chain's plan the planned number of times a step,
+    every other optimizer kernel never); loss, stats, the trailing clip's
+    factor, peak memory; then the optimizer step alone against plain
+    SNGM's on the same buffers."""
+    from repro_torch.core.multi_tensor import FlatGrads, zeros_flats
+    from repro_torch.core.optim import TrainState, make_optimizer
+    args, run = chain_run(torch, train_mod, name)
+    plan = run.opt.plan
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    state, mem = train_mod.train(args, run)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    recs = [m for _, m in mem.steps]
+    if len(recs) != args.steps:
+        raise AssertionError(f"{len(recs)} step records for {args.steps} steps")
+    for t, m in enumerate(recs):
+        if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm", "lr", "update_norm")):
+            raise AssertionError(f"{name} step {t}: non-finite stats {m}")
+    per_step = CHAIN_LAUNCHES[name]
+    want = {k: per_step.get(k, 0) * args.steps for k in OPT_KERNELS}
+    if {k: launches[k] for k in OPT_KERNELS} != want:
+        raise AssertionError(f"{name}: launches {launches} for {args.steps} "
+                             f"steps, want {want}")
+    n_buckets = len(state.opt_state.layout.buckets)
+    if sum(per_step.values()) != plan.fused.launches * n_buckets:
+        raise AssertionError(f"{name}: {per_step} against the plan's "
+                             f"{plan.fused.launches} a bucket")
+    extra = ""
+    if name == "clip_trailing":
+        clip = dict(plan.fused.kwargs)["suffix_clip"]
+        cs = [clip / max(m["grad_norm"], clip) for m in recs]
+        if not all(x < 1.0 for x in cs):
+            raise AssertionError(f"the trailing clip did not act: cscale {cs}")
+        extra = (f"; the clip sees lr*||u|| = {fmt_all(recs, 'grad_norm', '.4g')}"
+                 f", cscale {', '.join(format(x, '.4g') for x in cs)}")
+    steady = [m["step_time_s"] for m in recs[1:]]
+    log(f"{name} [{plan.describe()}]: {args.steps} steps of full-width gemma-2b, "
+        f"losses {fmt_all(recs, 'loss', '.4f')}, grad_norm "
+        f"{fmt_all(recs, 'grad_norm', '.4g')}; steps "
+        f"{fmt_all(recs, 'step_time_s', '.3f')} s (median after the first "
+        f"{float(np.median(steady)):.3f}); peak device memory "
+        f"{peak_gib:.2f} GiB; launches per step: "
+        + ", ".join(f"{k} {launches[k] / args.steps:g}" for k in per_step)
+        + f" (the plan's {plan.fused.launches} a bucket){extra}")
+    # the optimizer step alone, this chain and plain SNGM on the same buffers
+    layout = state.opt_state.layout
+    g = zeros_flats(layout, device="cuda")
+    for f in g:
+        f.normal_().mul_(1e-3)
+    grads = FlatGrads(tuple(g), layout)
+    sngm = make_optimizer("sngm", {"name": "poly_power", "kwargs": {
+        "lr0": 1.6, "total_steps": 100}}, weight_decay=1e-4, fused="multi_tensor")
+    as_sngm = TrainState(None, dataclasses.replace(state.opt_state, form="momentum"))
+    holder = {"chain": state, "sngm": as_sngm}
+
+    def step(opt, key):
+        def go():
+            holder[key], _ = opt.step_state(grads, holder[key])
+        return go
+    torch.cuda.reset_peak_memory_stats()
+    chain_ms = time_calls(torch, step(run.opt, "chain"), n=5)
+    opt_peak = torch.cuda.max_memory_allocated() / 2**30
+    sngm_ms = time_calls(torch, step(sngm, "sngm"), n=5)
+    chain_ms2 = time_calls(torch, step(run.opt, "chain"), n=5)
+    sngm_ms2 = time_calls(torch, step(sngm, "sngm"), n=5)
+    log(f"{name} optimizer step {chain_ms:.2f} / {chain_ms2:.2f} ms against plain "
+        f"SNGM {sngm_ms:.2f} / {sngm_ms2:.2f} ms on the same buffers (in turns); "
+        f"peak device memory in the chain's steps {opt_peak:.2f} GiB")
+    return launches
+
+
+def chain_phases(torch, kernels, ops, ref, train_mod, cfg):
+    """Phases 15-17; returns the kernels line's fused_update_deferred row,
+    its launches those of the trailing clip's training run."""
+    errs = phase_chain_kernels(torch, ops, ref, cfg)
+    row = phase_chain_timing(torch, ops, ref, cfg, errs)
+    for name in CHAIN_LAUNCHES:
+        launches = phase_chain_train(torch, kernels, train_mod, name)
+        if name == "clip_trailing":
+            row["launches"] = launches["fused_update_deferred"]
+        torch.cuda.empty_cache()
+    phase_chain_vs_interp(torch, cfg)
+    return {"fused_update_deferred": row}
+
+
+def phase_chain_vs_interp(torch, cfg, n_layers=2):
+    """Phase 17: each chain on the engine against the port's interpreter
+    (``compile_chain(tx, interpret=True)``) from one state and the same
+    full-width gradients, 3 steps, fp32 and bf16 params, within the JAX
+    grid's policy (``tests/test_chain_differential.py:140-168``: these
+    chains all clip, so fp32 rtol 5e-4 / atol 1e-6, bf16 rtol 5e-2 / atol
+    1e-2), with the launches of each engine step equal to the plan's.
+    Depth cut to 2 layers so both states and the interpreter's
+    temporaries fit beside each other, as in phase 10."""
+    from repro_torch import kernels, prng
+    from repro_torch.core import schedules as S
+    from repro_torch.core import transform as T
+    from repro_torch.core.optim import make_optimizer
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Runtime, materialize, model_defs
+    from repro_torch.training.step import _grad_leaves, loss_fn
+
+    def close(x, y, what):
+        """(bitwise, max |x - y| / (atol + rtol |y|)) under the policy."""
+        rtol, atol = (5e-2, 1e-2) if x.dtype == torch.bfloat16 else (5e-4, 1e-6)
+        xf, yf = x.float(), y.float()
+        ratio = ((xf - yf).abs() / (atol + rtol * yf.abs())).max().item() \
+            if x.numel() else 0.0
+        if x.dtype != y.dtype or ratio > 1.0:
+            raise AssertionError(f"{what}: {x.dtype}/{y.dtype}, {ratio:.3g} of "
+                                 f"the bound")
+        return same_bits(torch, x, y), ratio
+
+    report = []
+    for param_dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, n_layers=n_layers, param_dtype=param_dtype)
+        params = materialize(model_defs(c), prng.PRNGKey(1), torch.device("cuda"))
+        sched = S.poly_power(1.6, 4, 1.1)
+        # one set of full-width gradients, from one backward pass
+        opt = make_optimizer("sngm", {"name": "constant", "kwargs": {"lr": 0.1}},
+                             fused="multi_tensor")
+        leaves, grads = _grad_leaves(opt.init_state(params))
+        batch = SyntheticLM(c.vocab_size, 512, 2, seed=1,
+                            device=torch.device("cuda")).batch_at(0)
+        loss_fn(leaves, batch, c, Runtime(torch.device("cuda"), remat=True))[0].backward()
+        del leaves
+        for name, build in chain_builders().items():
+            tx = build(sched)
+            eng = T.compile_chain(tx, fused="multi_tensor")
+            interp = T.compile_chain(tx, interpret=True)
+            a = interp.init_state({k: v.clone() for k, v in params.items()})
+            b = eng.init_state(params)
+            worst, bits = 0.0, True
+            for t in range(3):
+                a, sa = interp.step_state(grads.tree, a)
+                kernels.reset_launches()
+                b, sb = eng.step_state(grads, b)
+                torch.cuda.synchronize()
+                n = sum(kernels.launch_counts().values())
+                if n != eng.plan.fused.launches * len(b.opt_state.layout.buckets):
+                    raise AssertionError(f"{name} {param_dtype} step {t}: {n} "
+                                         f"launches, plan {eng.plan.describe()}")
+                pairs = [(sb[k], sa[k], f"stat {k}") for k in sa]
+                pairs += [(b.params_view[k], a.params[k], f"param {k}")
+                          for k in a.params]
+                mom = next(s for s in a.opt_state.inner
+                           if isinstance(s, T.TraceState)).momentum
+                pairs += [(b.opt_state.momentum[k], mom[k], f"momentum {k}")
+                          for k in mom]
+                for x, y, what in pairs:
+                    same, ratio = close(x, y, f"{name} {param_dtype} step {t} {what}")
+                    bits &= same
+                    worst = max(worst, ratio)
+            report.append(f"{name} {param_dtype}: "
+                          + ("bitwise" if bits else f"{worst:.3g} of the bound"))
+            del a, b
+            torch.cuda.empty_cache()
+        del params, grads
+    log(f"each chain on the engine against the port's interpreter, 3 steps from "
+        f"one state on the same gradients, gemma-2b widths at {n_layers} layers, "
+        f"launches a step = the plan's: {'; '.join(report)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1660,6 +2048,10 @@ def main(argv=None) -> int:
     ap.add_argument("--paged-only", action="store_true",
                     help="phases 1, 2 and 5 only (a quick check of the paged "
                          "kernel); prints its row")
+    ap.add_argument("--chains-only", action="store_true",
+                    help="phases 1 and 15-17 only (gradient-transform chains "
+                         "on the engine, fused_update's deferred apply); "
+                         "prints its row")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
@@ -1693,7 +2085,9 @@ def main(argv=None) -> int:
     lars = SimpleNamespace(ops=lars_ops, ref=lars_ref)
     t_start = time.perf_counter()
     libs = {"paged_attention": [ops.SOURCE]}
-    if not args.paged_only:
+    if args.chains_only:
+        libs[mt_ops.LIB_NAME] = [mt_ops.SOURCE]
+    elif not args.paged_only:
         libs.update({mt_ops.LIB_NAME: [mt_ops.SOURCE],
                      sngm.ops.LIB_NAME: [sngm.ops.SOURCE],
                      lars.ops.LIB_NAME: [lars.ops.SOURCE],
@@ -1705,6 +2099,9 @@ def main(argv=None) -> int:
     if args.paged_only:
         err = phase_kernel(torch, ops, ref)
         kernel_rows.append(phase_timing(torch, ops, ref, None, err, 0, None))
+    elif args.chains_only:
+        rows.update(chain_phases(torch, kernels, mt_ops, mt_ref, train_mod,
+                                 get_config(ARCH)))
     elif not args.ops_only:
         err = phase_kernel(torch, ops, ref)
         rt = make_runtime("cuda")
@@ -1745,9 +2142,10 @@ def main(argv=None) -> int:
             del run, state
             torch.cuda.empty_cache()
         phase_fused_vs_plain(torch, cfg)
+        rows.update(chain_phases(torch, kernels, mt_ops, mt_ref, train_mod, cfg))
         t_train = time.perf_counter()
 
-    if not args.paged_only:
+    if not (args.paged_only or args.chains_only):
         phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
         cases = ops_cases(torch)
         outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)

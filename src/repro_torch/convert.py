@@ -1,5 +1,8 @@
 """Weights and optimizer state across: the JAX package's params pytree
-<-> the port's ``{dotted.path: Tensor}`` dict, bitwise.
+<-> the port's ``{dotted.path: Tensor}`` dict, bitwise.  Optimizer
+states: the momentum kinds' (``OptState`` / resident), LAMB's, an
+interpreter-run chain's ``ChainOptState`` and a segment-plan optimizer's
+``("chain", slots)`` resident state (without EMA slots, not ported).
 
 The JAX side hands over its tree as numpy arrays (``np.asarray`` of
 each leaf, nested dicts keyed as in ``repro.models.transformer.
@@ -12,7 +15,7 @@ when a bfloat16 leaf is met.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -138,3 +141,75 @@ def lamb_state_to_numpy(state):
     m, v = opt.moments if hasattr(opt, "moments") else (opt.m, opt.v)
     return (to_numpy_tree(state.params_view), to_numpy_tree(m),
             to_numpy_tree(v), int(state.step))
+
+
+def chain_state_from_numpy(params: Dict[str, Any], state, *, device="cpu"):
+    """The JAX interpreter's state across: params and a ``ChainOptState``
+    whose leaves are numpy arrays (``jax.tree.map(np.asarray, state)``)
+    -> the port's ``TrainState`` (params, ``ChainOptState``) on
+    ``device``.  Each stage's state is recognised by its fields: ()
+    stateless, (momentum,) ``trace``, (count,) ``scale_by_schedule``,
+    (count, m, v) ``scale_by_adam``.  Counters become ints; bitwise,
+    bf16 included."""
+    from repro_torch.core import transform as T
+    from repro_torch.core.optim import TrainState
+    (p,) = _trees_on(device, params)
+
+    def slot(tree):
+        return _trees_on(device, params, tree)[1]
+
+    inner = []
+    for s in state.inner:
+        f = s._asdict()
+        keys = tuple(sorted(f))
+        if keys == ():
+            inner.append(T.EmptyState())
+        elif keys == ("momentum",):
+            inner.append(T.TraceState(slot(f["momentum"])))
+        elif keys == ("count",):
+            inner.append(T.ScaleByScheduleState(int(f["count"])))
+        elif keys == ("count", "m", "v"):
+            inner.append(T.ScaleByAdamState(int(f["count"]), slot(f["m"]),
+                                            slot(f["v"])))
+        elif keys == ("ema",):
+            raise NotImplementedError(T.EMA_NOT_PORTED)
+        else:
+            raise TypeError(f"no port state for a chain stage with fields {keys}")
+    return TrainState(params=p,
+                      opt_state=T.ChainOptState(int(state.step), tuple(inner)))
+
+
+def plan_state_from_numpy(params: Dict[str, Any], slots, step: int, *,
+                          momentum: Optional[Dict[str, Any]] = None,
+                          m: Optional[Dict[str, Any]] = None,
+                          v: Optional[Dict[str, Any]] = None, device="cpu"):
+    """A segment-plan optimizer's resident state across: the JAX
+    package's ``FlatOptState`` of form ``("chain", slots)``, given as its
+    numpy views (``state.params`` and ``state.momentum``, or
+    ``state.moments`` for an ``"adam"`` slot) -> the port's
+    ``TrainState`` (params None, ``FlatOptState`` of the same form) on
+    ``device``.  Bitwise.  EMA slots (``e_flats``) are not ported."""
+    from repro_torch.core.multi_tensor import build_layout, flatten
+    from repro_torch.core.optim import FlatOptState, TrainState
+    from repro_torch.core.transform import EMA_NOT_PORTED
+    slots = tuple(slots)
+    if "ema" in slots:
+        raise NotImplementedError(EMA_NOT_PORTED)
+    want_u, want_mv = "trace" in slots, "adam" in slots
+    if want_u != (momentum is not None) or want_mv != (m is not None
+                                                       and v is not None):
+        raise ValueError(f"slots {slots} need momentum for 'trace' and m, v "
+                         f"for 'adam', and nothing else")
+    trees = _trees_on(device, params, *([momentum] if want_u else []),
+                      *([m, v] if want_mv else []))
+    p = trees[0]
+    layout = build_layout(p)
+
+    def packed(t):
+        return tuple(flatten(t, layout, cast_to=torch.float32))
+    return TrainState(params=None, opt_state=FlatOptState(
+        step=int(step), p_flats=tuple(flatten(p, layout)),
+        u_flats=packed(trees[1]) if want_u else (), layout=layout,
+        m_flats=packed(trees[1]) if want_mv else (),
+        v_flats=packed(trees[2]) if want_mv else (),
+        form=("chain", slots)))

@@ -1,14 +1,27 @@
 """Multi-tensor fused optimizer engine, single device.
 
-A port of ``repro.core.multi_tensor`` (sharding, clip rounds and EMA
-slots are not ported yet).  The parameter dict is packed into
-dtype-bucketed flat buffers; one ``chunk_sumsq`` pass per bucket gives
-every global and per-tensor squared norm, and one ``fused_update`` pass
-per bucket applies momentum and the update — 2 kernel launches per
-bucket and step for sngm, sngm_per_tensor and msgd, 3 for lars.  LAMB
-runs ``adam_update`` (both moments, the direction and its norm
-partials) and ``scale_apply`` (trust ratio, lr and apply): 2 launches
-per bucket and step.
+A port of ``repro.core.multi_tensor`` (sharding and EMA slots are not
+ported yet).  The parameter dict is packed into dtype-bucketed flat
+buffers; one ``chunk_sumsq`` pass per bucket gives every global and
+per-tensor squared norm, and one ``fused_update`` pass per bucket
+applies momentum and the update — 2 kernel launches per bucket and step
+for sngm, sngm_per_tensor and msgd, 3 for lars.  LAMB runs
+``adam_update`` (both moments, the direction and its norm partials) and
+``scale_apply`` (trust ratio, lr and apply): 2 launches per bucket and
+step.
+
+Clipping, as the chain compiler places it (``core/transform.py``):
+
+  * a clip before the kind's stages (``clip=``) is a round of its own:
+    one ``chunk_sumsq`` of the raw gradients per bucket, then the
+    interpreter's clip expression leaf by leaf (``_clip_tree_round``) or
+    on the flat buffers (``_clip_flats_round``): one launch more, and a
+    clipped msgd skips its norm pass (the clip reports the norm);
+  * a trailing clip (``suffix_clip=``, after the schedule) defers the
+    apply: ``fused_update(apply=False)`` writes the f32 direction, the
+    host forms ``cscale = clip / max(lr * ||direction||, clip)`` on the
+    device, and one ``scale_apply`` per bucket applies
+    ``p - lr * (cscale * direction)``: one launch more.
 
 Numerics are bitwise those of the plain optimizer path (``core.optim``
 with ``fused=None``) because both share one reduction order:
@@ -42,7 +55,7 @@ import torch
 
 from repro_torch.kernels.fused_lars.ref import lars_sqnorm_ref
 from repro_torch.kernels.multi_tensor import ops as _ops
-from repro_torch.kernels.multi_tensor.ref import CHUNK, TILE
+from repro_torch.kernels.multi_tensor.ref import CHUNK, TILE, chunk_sumsq_ref
 
 Tree = Dict[str, torch.Tensor]
 NOT_PORTED = "is not ported yet (ROADMAP.md Queue A)"
@@ -257,10 +270,13 @@ def _leaf_values(parts_per_bucket, layout: TreeLayout) -> List[torch.Tensor]:
 class FlatOptState:
     """Params (bucket dtype) and the f32 optimizer slots kept as flat
     buffers, one per layout bucket.  The momentum kinds carry their
-    momentum in ``u_flats``; LAMB (``form == LAMB_FORM``) carries its
-    first and second moments in ``m_flats``/``v_flats`` instead, and
-    ``u_flats`` is empty.  The buffers are the parameters' single owner;
-    ``params``, ``momentum`` and ``moments`` are views into them."""
+    momentum in ``u_flats``; LAMB (``form`` ``("lamb", n_prefix, 2)``)
+    carries its first and second moments in ``m_flats``/``v_flats``
+    instead, and ``u_flats`` is empty.  A segment-plan optimizer's state
+    has the form ``("chain", slots)``, slots tagging each chain stage's
+    state ("empty", "trace", "sched", "adam"), as in the JAX package.
+    The buffers are the parameters' single owner; ``params``,
+    ``momentum`` and ``moments`` are views into them."""
     step: int
     p_flats: Tuple[torch.Tensor, ...]
     u_flats: Tuple[torch.Tensor, ...]
@@ -284,17 +300,17 @@ class FlatOptState:
                 unflatten(self.v_flats, self.layout))
 
 
-def init_flat_state(params: Tree) -> FlatOptState:
+def init_flat_state(params: Tree, form: Any = "momentum") -> FlatOptState:
     """Params packed once, momentum zeros (f32), on the params' device."""
     layout = build_layout(params)
     p_flats = flatten(params, layout)
     device = p_flats[0].device if p_flats else None
     return FlatOptState(step=0, p_flats=tuple(p_flats),
                         u_flats=tuple(zeros_flats(layout, torch.float32, device)),
-                        layout=layout)
+                        layout=layout, form=form)
 
 
-def init_flat_adam_state(params: Tree) -> FlatOptState:
+def init_flat_adam_state(params: Tree, form: Any = LAMB_FORM) -> FlatOptState:
     """LAMB's resident state: params packed once, both moments zeros (f32)
     in distinct buffers (the kernel updates each in place), no momentum
     slot."""
@@ -305,7 +321,7 @@ def init_flat_adam_state(params: Tree) -> FlatOptState:
                         layout=layout,
                         m_flats=tuple(zeros_flats(layout, torch.float32, device)),
                         v_flats=tuple(zeros_flats(layout, torch.float32, device)),
-                        form=LAMB_FORM)
+                        form=form)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -335,31 +351,44 @@ def check_grad_dtypes(grads: Tree, layout: TreeLayout) -> None:
                     f"to f32).")
 
 
-def _grad_flats(grads, layout: TreeLayout) -> List[torch.Tensor]:
-    """``FlatGrads`` as they are, or a gradient dict packed here."""
+def require_matching_layout(grads: FlatGrads, layout: TreeLayout) -> None:
+    if grads.layout != layout:
+        raise ValueError("FlatGrads were packed with a different "
+                         "TreeLayout than the resident state carries")
+
+
+def _grad_flats(grads, layout: TreeLayout, clip: Optional[float]):
+    """The gradient buffers a resident step feeds its kind, and the raw
+    norm a clip round reports (None without a clip): ``FlatGrads`` as
+    they are (clipped on the buffers), or a gradient dict clipped leaf by
+    leaf and packed here."""
     if isinstance(grads, FlatGrads):
-        if grads.layout != layout:
-            raise ValueError("FlatGrads were packed with a different "
-                             "TreeLayout than the resident state carries")
-        return list(grads.flats)
+        require_matching_layout(grads, layout)
+        if clip is None:
+            return list(grads.flats), None
+        return _clip_flats_round(grads.flats, layout, float(clip))
     check_grad_dtypes(grads, layout)
-    return flatten(grads, layout)
+    gnorm = None
+    if clip is not None:
+        grads, gnorm = _clip_tree_round(grads, layout, float(clip))
+    return flatten(grads, layout), gnorm
 
 
 def resident_step(kind: str, grads, state: FlatOptState, *, lr, beta: float,
                   weight_decay: float = 0.0, eps: float = 1e-12,
-                  trust: float = 0.001, nesterov: bool = False
-                  ) -> Tuple[FlatOptState, dict]:
+                  trust: float = 0.001, clip: Optional[float] = None,
+                  nesterov: bool = False) -> Tuple[FlatOptState, dict]:
     """The resident fast path: params and momentum stay in ``state``'s
     buffers and are updated in place; gradients come as ``FlatGrads``
-    (used as they are) or as a dict (packed here).  Returns
-    ``(new_state, stats)``; the new state shares the buffers."""
+    (used as they are) or as a dict (packed here).  ``clip`` runs the
+    clip round first.  Returns ``(new_state, stats)``; the new state
+    shares the buffers."""
     layout = state.layout
-    g_flats = _grad_flats(grads, layout)
+    g_flats, stat_gnorm = _grad_flats(grads, layout, clip)
     stats = multi_tensor_step_flat(
         kind, layout, state.p_flats, g_flats, state.u_flats, lr=lr,
         beta=beta, weight_decay=weight_decay, eps=eps, trust=trust,
-        nesterov=nesterov)
+        nesterov=nesterov, stat_gnorm=stat_gnorm)
     return dataclasses.replace(state, step=state.step + 1), stats
 
 
@@ -368,17 +397,72 @@ def resident_lamb_step(grads, state: FlatOptState, *, lr, b1: float,
                        trust_eps: float = 0.0, clip: Optional[float] = None
                        ) -> Tuple[FlatOptState, dict]:
     """LAMB's resident path: params and both moments stay in ``state``'s
-    buffers and are updated in place; gradients as in ``resident_step``.
-    Returns ``(new_state, stats)``; the new state shares the buffers."""
-    if clip is not None:
-        raise NotImplementedError(f"clip {NOT_PORTED}")
+    buffers and are updated in place; gradients and ``clip`` as in
+    ``resident_step``.  Returns ``(new_state, stats)``; the new state
+    shares the buffers."""
     layout = state.layout
-    g_flats = _grad_flats(grads, layout)
+    g_flats, stat_gnorm = _grad_flats(grads, layout, clip)
     stats = multi_tensor_lamb_step_flat(
         layout, state.p_flats, g_flats, state.m_flats, state.v_flats,
         count=state.step, lr=lr, b1=b1, b2=b2, eps=eps,
-        weight_decay=weight_decay, trust_eps=trust_eps)
+        weight_decay=weight_decay, trust_eps=trust_eps,
+        stat_gnorm=stat_gnorm)
     return dataclasses.replace(state, step=state.step + 1), stats
+
+
+# ---------------------------------------------------------------------------
+# norms off flat buffers, and the clip rounds
+# ---------------------------------------------------------------------------
+
+def flat_squared_norm(flats: Sequence[torch.Tensor],
+                      layout: TreeLayout) -> torch.Tensor:
+    """The canonical squared norm straight off flat buffers with no kernel
+    launch, as the JAX package takes it in jnp: CHUNK-row partials per
+    bucket, per-segment pairwise folds, added in the JAX leaf order, so
+    bitwise ``tree_squared_norm(unflatten(flats, layout))``."""
+    return sum(_leaf_values([chunk_sumsq_ref(f) for f in flats], layout))
+
+
+def flat_global_norm(flats: Sequence[torch.Tensor],
+                     layout: TreeLayout) -> torch.Tensor:
+    return torch.sqrt(flat_squared_norm(flats, layout))
+
+
+def clip_scale(gnorm: torch.Tensor, clip: float) -> torch.Tensor:
+    """``clip / max(gnorm, clip)`` in f32 on gnorm's device, the
+    interpreter's clip factor (<= 1, no eps).  Both operands are tensors
+    on one device, so the quotient is a true division (PyTorch's CUDA
+    division by a CPU scalar multiplies by its reciprocal)."""
+    c = torch.full_like(gnorm, clip)
+    return c / torch.maximum(gnorm, c)
+
+
+def clip_leaf(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """One leaf (or buffer) clipped: scaled in f32, cast back."""
+    return (g.float() * scale).to(g.dtype)
+
+
+def _clip_flats_round(g_flats, layout: TreeLayout, clip: float):
+    """The clip round on gradients already in flat buffers: one raw
+    ``chunk_sumsq`` launch per bucket, then the clip expression on the
+    buffers (bitwise the leafwise clip: the scale is one scalar, and zero
+    padding stays zero).  Returns (clipped_flats, raw_gnorm)."""
+    parts = [_ops.chunk_sumsq(gf) for gf in g_flats]
+    gnorm = torch.sqrt(sum(_leaf_values(parts, layout)))
+    scale = clip_scale(gnorm, clip)
+    return [clip_leaf(gf, scale) for gf in g_flats], gnorm
+
+
+def _clip_tree_round(grads: Tree, layout: TreeLayout, clip: float,
+                     cast_to: Optional[torch.dtype] = None):
+    """The clip round on a gradient dict: pack the raw gradients (at
+    ``cast_to``, f32 where an earlier chain stage promoted them), reduce
+    their norm in one ``chunk_sumsq`` launch per bucket, then clip leaf
+    by leaf.  Returns (clipped_grads, raw_gnorm)."""
+    parts = [_ops.chunk_sumsq(gf) for gf in flatten(grads, layout, cast_to)]
+    gnorm = torch.sqrt(sum(_leaf_values(parts, layout)))
+    scale = clip_scale(gnorm, clip)
+    return {k: clip_leaf(g, scale) for k, g in grads.items()}, gnorm
 
 
 # ---------------------------------------------------------------------------
@@ -391,18 +475,24 @@ KINDS = ("sngm_global", "sngm_per_tensor", "msgd", "lars")
 def multi_tensor_step(kind: str, params: Tree, grads: Tree, momentum: Tree, *,
                       lr, beta: float, weight_decay: float = 0.0,
                       eps: float = 1e-12, trust: float = 0.001,
+                      clip: Optional[float] = None,
                       nesterov: bool = False) -> Tuple[Tree, Tree, dict]:
     """One fused step over whole dicts: packs params, grads and momentum
-    into new flat buffers, runs the engine and unpacks.  Returns
-    (new_params, new_momentum, stats); the inputs are left untouched."""
+    into new flat buffers, runs the engine and unpacks.  ``clip`` runs
+    the clip round first.  Returns (new_params, new_momentum, stats); the
+    inputs are left untouched."""
     layout = build_layout(params)
     check_grad_dtypes(grads, layout)
+    stat_gnorm = None
+    if clip is not None:
+        grads, stat_gnorm = _clip_tree_round(grads, layout, float(clip))
     p_flats = flatten(params, layout)
     g_flats = flatten(grads, layout)
     u_flats = flatten(momentum, layout, cast_to=torch.float32)
     stats = multi_tensor_step_flat(
         kind, layout, p_flats, g_flats, u_flats, lr=lr, beta=beta,
-        weight_decay=weight_decay, eps=eps, trust=trust, nesterov=nesterov)
+        weight_decay=weight_decay, eps=eps, trust=trust, nesterov=nesterov,
+        stat_gnorm=stat_gnorm)
     return unflatten(p_flats, layout), unflatten(u_flats, layout), stats
 
 
@@ -412,28 +502,49 @@ def multi_tensor_step_flat(kind: str, layout: TreeLayout,
                            u_flats: Sequence[torch.Tensor], *, lr,
                            beta: float, weight_decay: float = 0.0,
                            eps: float = 1e-12, trust: float = 0.001,
-                           nesterov: bool = False) -> dict:
+                           nesterov: bool = False,
+                           suffix_clip: Optional[float] = None,
+                           stat_gnorm: Optional[torch.Tensor] = None) -> dict:
     """The engine core over one (p, g, u) buffer triple per bucket; p and
     u are updated in place.  Returns the stats {grad_norm, lr,
-    update_norm} (0-dim f32 tensors, left on the buffers' device)."""
+    update_norm} (0-dim f32 tensors, left on the buffers' device).
+
+    ``stat_gnorm`` is the raw norm a clip round before the kind reported;
+    msgd takes it as its ``grad_norm`` and skips its norm pass (its
+    coefficients need no norm).  ``suffix_clip`` compiles a trailing
+    ``clip_by_global_norm``: pass 2 defers the apply and writes the f32
+    direction, whose norm times the lr is the norm the interpreter's
+    clip sees, and pass 3 (``scale_apply``) applies the clipped step.
+    Against the interpreter this associates ``lr * ||u||`` where it folds
+    ``||lr * u||`` and applies ``lr * (cscale * u)`` where it applies
+    ``(lr * u) * cscale``: a few ulp, as in the JAX package.  The stats
+    follow the interpreter's left-to-right merge: the trailing clip
+    reports the norm of its input (``lr * ||u||``) as ``grad_norm``, and
+    ``update_norm`` stays the schedule's pre-lr norm."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
     wd = float(weight_decay)
 
     # ---- pass 1: squared-norm partials per bucket ----------------------
     # sngm/msgd norm the decayed gradient (g + wd*w, inside the kernel);
-    # lars needs raw ||g|| and ||w|| per tensor instead
+    # lars needs raw ||g|| and ||w|| per tensor instead.  msgd runs it for
+    # the grad_norm stat only, so not when a clip reports that stat
     g_parts, w_parts = [], []
-    for pf, gf in zip(p_flats, g_flats):
-        if kind == "lars":
-            g_parts.append(_ops.chunk_sumsq(gf))
-            w_parts.append(_ops.chunk_sumsq(pf))
-        else:
-            g_parts.append(_ops.chunk_sumsq(gf, pf, wd=wd))
+    if not (kind == "msgd" and (stat_gnorm is not None
+                                or suffix_clip is not None)):
+        for pf, gf in zip(p_flats, g_flats):
+            if kind == "lars":
+                g_parts.append(_ops.chunk_sumsq(gf))
+                w_parts.append(_ops.chunk_sumsq(pf))
+            else:
+                g_parts.append(_ops.chunk_sumsq(gf, pf, wd=wd))
 
     # per-segment and global sums, in the JAX leaf order
-    gsq_by_leaf = _leaf_values(g_parts, layout)
-    gnorm = torch.sqrt(sum(gsq_by_leaf))
+    if g_parts:
+        gsq_by_leaf = _leaf_values(g_parts, layout)
+        gnorm = torch.sqrt(sum(gsq_by_leaf))
+    else:
+        gsq_by_leaf, gnorm = None, stat_gnorm
     wsq_by_leaf = _leaf_values(w_parts, layout) if kind == "lars" else None
 
     # ---- coefficients --------------------------------------------------
@@ -452,7 +563,8 @@ def multi_tensor_step_flat(kind: str, layout: TreeLayout,
         c = lr
     elif kind == "msgd":
         a_chunks = [torch.ones(b.n_chunks, dtype=torch.float32,
-                               device=gnorm.device) for b in layout.buckets]
+                               device=pf.device)
+                    for b, pf in zip(layout.buckets, p_flats)]
         c = lr
     else:  # lars
         def local_lr(s):
@@ -466,11 +578,26 @@ def multi_tensor_step_flat(kind: str, layout: TreeLayout,
         cast_g_first = True
 
     # ---- pass 2: fused momentum + apply per bucket ---------------------
-    usq_parts = [_ops.fused_update(pf, gf, uf, ac, c, beta=beta, wd=wd,
-                                   cast_g_first=cast_g_first, nesterov=nesterov)
-                 for pf, gf, uf, ac in zip(p_flats, g_flats, u_flats, a_chunks)]
-    unorm = torch.sqrt(sum(_leaf_values(usq_parts, layout)))
-    return {"grad_norm": gnorm, "lr": lr, "update_norm": unorm}
+    kw = dict(beta=beta, wd=wd, cast_g_first=cast_g_first, nesterov=nesterov)
+    if suffix_clip is None:
+        usq_parts = [_ops.fused_update(pf, gf, uf, ac, c, **kw)
+                     for pf, gf, uf, ac in zip(p_flats, g_flats, u_flats,
+                                               a_chunks)]
+        unorm = torch.sqrt(sum(_leaf_values(usq_parts, layout)))
+        return {"grad_norm": gnorm, "lr": lr, "update_norm": unorm}
+    deferred = [_ops.fused_update(pf, gf, uf, ac, c, apply=False, **kw)
+                for pf, gf, uf, ac in zip(p_flats, g_flats, u_flats, a_chunks)]
+    unorm = torch.sqrt(sum(_leaf_values([q for _, q in deferred], layout)))
+
+    # ---- pass 3 (trailing clip): rescale the direction and apply -------
+    # p <- p - lr * (cscale * direction); the clip's factor stays on the
+    # device, read by the kernel as its per-row coefficient
+    snorm = lr * unorm
+    cscale = clip_scale(snorm, float(suffix_clip))
+    for b, pf, (eff, _) in zip(layout.buckets, p_flats, deferred):
+        _ops.scale_apply(pf, eff, cscale.reshape(1).expand(b.n_chunks)
+                         .contiguous(), lr)
+    return {"grad_norm": snorm, "lr": lr, "update_norm": unorm}
 
 
 # ---------------------------------------------------------------------------
@@ -502,19 +629,22 @@ def multi_tensor_lamb_step(params: Tree, grads: Tree, count: int, m: Tree,
                            ) -> Tuple[Tree, Tree, Tree, dict]:
     """One fused LAMB step over whole dicts (the per-step packing path):
     packs params, grads and both moments into new flat buffers, runs the
-    engine and unpacks.  ``count`` is the step before this one.  Returns
-    (new_params, new_m, new_v, stats); the inputs are left untouched."""
-    if clip is not None:
-        raise NotImplementedError(f"clip {NOT_PORTED}")
+    engine and unpacks.  ``count`` is the step before this one; ``clip``
+    runs the clip round first.  Returns (new_params, new_m, new_v,
+    stats); the inputs are left untouched."""
     layout = build_layout(params)
     check_grad_dtypes(grads, layout)
+    stat_gnorm = None
+    if clip is not None:
+        grads, stat_gnorm = _clip_tree_round(grads, layout, float(clip))
     p_flats = flatten(params, layout)
     g_flats = flatten(grads, layout)
     m_flats = flatten(m, layout, cast_to=torch.float32)
     v_flats = flatten(v, layout, cast_to=torch.float32)
     stats = multi_tensor_lamb_step_flat(
         layout, p_flats, g_flats, m_flats, v_flats, count=count, lr=lr,
-        b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, trust_eps=trust_eps)
+        b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, trust_eps=trust_eps,
+        stat_gnorm=stat_gnorm)
     return (unflatten(p_flats, layout), unflatten(m_flats, layout),
             unflatten(v_flats, layout), stats)
 
@@ -526,15 +656,17 @@ def multi_tensor_lamb_step_flat(layout: TreeLayout,
                                 v_flats: Sequence[torch.Tensor], *,
                                 count: int, lr, b1: float, b2: float,
                                 eps: float, weight_decay: float = 0.0,
-                                trust_eps: float = 0.0) -> dict:
+                                trust_eps: float = 0.0,
+                                stat_gnorm: Optional[torch.Tensor] = None
+                                ) -> dict:
     """The LAMB engine core: per bucket, ``adam_update`` advances m and v
     in place and forms the direction with its row partials (u, p, g);
     the host folds them per segment into the trust ratios; then
     ``scale_apply`` applies ``p <- p - lr*(ratio*u)`` in place.  The
-    stats are the raw gradient norm, the lr, and the norm of the
-    trust-scaled direction before the lr (the plain path's
-    ``update_norm``).  ``eps`` must be > 0 (zero padding must give a zero
-    direction)."""
+    stats are the raw gradient norm (``stat_gnorm`` where a clip round
+    reported it), the lr, and the norm of the trust-scaled direction
+    before the lr (the plain path's ``update_norm``).  ``eps`` must be
+    > 0 (zero padding must give a zero direction)."""
     assert eps > 0.0, "fused lamb requires adam eps > 0 (pad invariance)"
     wd = float(weight_decay)
     bc1, bc2 = bias_corrections(count, b1, b2)
@@ -548,7 +680,8 @@ def multi_tensor_lamb_step_flat(layout: TreeLayout,
         usq_parts.append(usq)
         psq_parts.append(psq)
         gsq_parts.append(gsq)
-    gnorm = torch.sqrt(sum(_leaf_values(gsq_parts, layout)))
+    gnorm = (stat_gnorm if stat_gnorm is not None
+             else torch.sqrt(sum(_leaf_values(gsq_parts, layout))))
 
     # ---- per-segment trust ratios --------------------------------------
     usq_by_leaf = _leaf_values(usq_parts, layout)

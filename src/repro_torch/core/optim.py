@@ -1,37 +1,50 @@
-"""Optimizers: SNGM (the paper, Algorithm 1) and its baselines.
+"""Optimizers: SNGM (the paper, Algorithm 1) and its baselines, built as
+gradient-transform chains.
 
-A port of ``repro.core.optim`` at kind level.  The JAX package builds
-these optimizers as gradient-transform chains and compiles the chain
-onto a kind of the multi-tensor engine (``core/transform.py``); the port
-builds the kinds directly (the chain algebra is ROADMAP.md Queue A
-item 11):
+A port of ``repro.core.optim``.  Every builder composes a chain of
+``core/transform.py`` stages and compiles it with ``compile_chain``, as
+the JAX package does, so a user's chain and a named optimizer take one
+road to the engine:
 
-    sngm   kind sngm_global or sngm_per_tensor  u = beta*u + g/||g||
+    sngm   add_decayed_weights . normalize_by_global_norm . trace
+           . scale_by_schedule             (kind sngm_global; per_tensor:
+                                            normalize_per_tensor)
     sngd   sngm with beta = 0
-    msgd   kind msgd                             v = beta*v + g
-    lars   kind lars                             v = beta*v + lr*local*(g + wd*w)
-    lamb   Adam direction, decoupled wd, per-tensor trust ratio, lr last
+    msgd   add_decayed_weights . trace . scale_by_schedule
+    lars   trust_ratio . scale_by_schedule . trace
+    lamb   scale_by_adam . add_decayed_weights . scale_by_trust_ratio
+           . scale_by_schedule
+
+``compile_chain`` matches those shapes, optionally led by
+``clip_by_global_norm``, onto the kind-level optimizers here
+(``_kind_optimizer``, ``_lamb_optimizer``); other chains with a fusible
+tail run as segment plans (``_plan_optimizer``: plain prefix stages, a
+mid-chain clip folded into the tail's clip round, a trailing clip as the
+deferred-apply pass), and the rest on the chain interpreter.
 
 ``fused=None`` runs the plain path (``_plain_kind_step``, the JAX
 package's ``_jnp_kind_step``; for lamb ``_plain_lamb_step``, the chain
 interpreter's stages); ``fused="multi_tensor"`` runs the engine in
-``core/multi_tensor.py`` (2 kernel launches per step and dtype bucket
-for sngm, msgd, nesterov sngm and lamb, 3 for lars), bitwise equal to
-the plain path; ``fused="per_leaf"`` (sngm with the global norm, sngd
-and lars) runs one kernel per tensor (``_per_leaf_kind_step``: 1 launch
-per leaf for sngm, 3 for lars), the baseline the engine is measured
-against, bitwise equal to the plain path in fp32.
+``core/multi_tensor.py`` (kernel launches per step and dtype bucket:
+sngm, msgd, nesterov sngm and lamb 2, lars 3, one more for a clip
+round or a trailing clip), bitwise equal to the plain path;
+``fused="per_leaf"`` (sngm with the global norm, sngd and lars) runs one
+kernel per tensor (``_per_leaf_kind_step``: 1 launch per leaf for sngm,
+3 for lars), the baseline the engine is measured against, bitwise equal
+to the plain path in fp32.  Not ported yet: ``ema_decay`` (ROADMAP.md
+Queue A5).
 
 State forms: with ``fused="multi_tensor"``, ``init`` returns a resident
-``FlatOptState`` whose flat buffers own the parameters; an ``OptState``
-fed to the engine takes the per-step packing route, and a
-``FlatOptState`` fed to the plain path reads its views and returns an
-``OptState`` (lamb: ``LambState``).  ``TrainState`` is the unified
-state the train step threads: on the resident path ``params`` is None
-and the buffers are the single parameter copy.  A stepped resident
-state's buffers hold the new values (the kernels update them in place),
-and so do a per-leaf step's parameter and momentum tensors: only the
-returned state may be used.
+``FlatOptState`` whose flat buffers own the parameters (a segment plan's
+has the form ``("chain", slots)``); an ``OptState`` fed to the engine
+takes the per-step packing route, and a ``FlatOptState`` fed to the
+plain path reads its views and returns an ``OptState`` (lamb:
+``LambState``).  Interpreter-run chains carry a ``ChainOptState``.
+``TrainState`` is the unified state the train step threads: on the
+resident path ``params`` is None and the buffers are the single
+parameter copy.  A stepped resident state's buffers hold the new values
+(the kernels update them in place), and so do a per-leaf step's
+parameter and momentum tensors: only the returned state may be used.
 """
 from __future__ import annotations
 
@@ -40,13 +53,14 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.multi_tensor import (NOT_PORTED, FlatGrads,
-                                           FlatOptState, bias_corrections,
-                                           global_norm, init_flat_adam_state,
-                                           init_flat_state, leaf_order,
-                                           leaf_sumsq, multi_tensor_step,
-                                           resident_lamb_step, resident_step,
-                                           trust_ratio)
+from repro_torch.core import transform as T
+from repro_torch.core.multi_tensor import (
+    NOT_PORTED, FlatGrads, FlatOptState, _clip_flats_round, _clip_tree_round,
+    bias_corrections, clip_leaf, clip_scale, flat_global_norm, flatten,
+    global_norm, init_flat_adam_state, init_flat_state, leaf_order,
+    leaf_sumsq, multi_tensor_lamb_step_flat, multi_tensor_step,
+    multi_tensor_step_flat, require_matching_layout, resident_lamb_step,
+    resident_step, trust_ratio)
 from repro_torch.core.schedules import Schedule, make_schedule
 from repro_torch.kernels.multi_tensor.ref import weak_scalar
 
@@ -71,11 +85,15 @@ class LambState(NamedTuple):
 class Optimizer:
     """init/step pair.  ``step(grads, state, params)`` returns
     (new_params, new_state, stats); ``new_params`` is None on the
-    resident path, whose buffers own the parameters."""
+    resident path, whose buffers own the parameters.  ``kind`` is the
+    engine kind a compiled chain matched (the whole chain's or a segment
+    plan's tail), ``plan`` the chain compiler's ``SegmentPlan`` (None
+    outside ``compile_chain`` and under ``interpret=True``)."""
     name: str
     init: Callable[[Tree], Any]
     step: Callable[[Any, Any, Optional[Tree]], Tuple[Optional[Tree], Any, dict]]
     kind: Optional[str] = None
+    plan: Any = None
 
     def init_state(self, params: Tree) -> "TrainState":
         return TrainState.wrap(params, self.init(params))
@@ -140,14 +158,27 @@ def _decayed(grads: Tree, params: Tree, weight_decay: float) -> Tree:
             for k, g in grads.items()}
 
 
+def _clip_tree(grads: Tree, clip: float):
+    """The interpreter's clip_by_global_norm: the clipped gradient dict
+    (scaled in f32, cast back per leaf) and the RAW norm."""
+    raw = global_norm(grads)
+    scale = clip_scale(raw, clip)
+    return {k: clip_leaf(g, scale) for k, g in grads.items()}, raw
+
+
 def _plain_kind_step(kind: str, grads: Tree, momentum: Tree, params: Tree, *,
                      lr, beta: float, weight_decay: float, eps: float,
-                     trust: float, nesterov: bool = False):
+                     trust: float, clip: Optional[float] = None,
+                     nesterov: bool = False):
     """The plain step for one engine kind, expression for expression the
     JAX package's ``_jnp_kind_step``.  Returns (new_params, new_momentum,
-    stats).  ``nesterov`` applies the update expression a second time
-    with the fresh momentum; the momentum state stays the plain trace."""
+    stats).  ``clip`` clips the gradients first; ``nesterov`` applies the
+    update expression a second time with the fresh momentum; the
+    momentum state stays the plain trace."""
     lr = torch.as_tensor(lr, dtype=torch.float32).cpu()
+    raw_gnorm = None
+    if clip is not None:
+        grads, raw_gnorm = _clip_tree(grads, clip)
     if kind == "lars":
         def upd(v, g, w):
             g = g.float()
@@ -181,6 +212,10 @@ def _plain_kind_step(kind: str, grads: Tree, momentum: Tree, params: Tree, *,
         new_u = {k: upd(momentum[k], g[k]) for k in params}
         out_u = {k: upd(new_u[k], g[k]) for k in params} if nesterov else new_u
         new_p = {k: (w - lr * out_u[k]).to(w.dtype) for k, w in params.items()}
+    if clip is not None and kind == "msgd":
+        # a clipped msgd chain has no norm-emitting stage after the clip,
+        # so the interpreter reports the RAW gradient norm
+        gnorm = raw_gnorm
     stats = {"grad_norm": gnorm, "lr": lr, "update_norm": global_norm(out_u)}
     return new_p, new_u, stats
 
@@ -220,7 +255,9 @@ def _kind_optimizer(kind: str, schedule: Schedule, *, beta: float,
                     name: Optional[str] = None) -> Optimizer:
     """The Optimizer for one engine kind in the requested execution mode
     (``fused=None``, ``"multi_tensor"`` or ``"per_leaf"``), with the JAX
-    package's refusals."""
+    package's refusals: ``compile_chain``'s target for a matched chain.
+    ``clip`` is a leading ``clip_by_global_norm``: the clip round on the
+    engine, the leafwise pre-scale on the plain path."""
     fused = _resolve_fused(fused)
     if fused == "per_leaf" and kind not in _PER_LEAF_KINDS:
         raise ValueError(f"fused='per_leaf' is not available for kind "
@@ -233,10 +270,8 @@ def _kind_optimizer(kind: str, schedule: Schedule, *, beta: float,
         raise ValueError("fused='per_leaf' has no nesterov variant; use "
                          "fused='multi_tensor' or fused=None for "
                          "trace(nesterov=True) chains")
-    if clip is not None:
-        raise NotImplementedError(f"clip {NOT_PORTED}")
     kw = dict(beta=beta, weight_decay=weight_decay, eps=eps, trust=trust,
-              nesterov=nesterov)
+              clip=clip, nesterov=nesterov)
 
     @torch.no_grad()
     def step_fn(grads, state, params):
@@ -271,14 +306,19 @@ def _kind_optimizer(kind: str, schedule: Schedule, *, beta: float,
 
 def _plain_lamb_step(grads: Tree, state: LambState, params: Tree, lr, *,
                      b1: float, b2: float, eps: float, weight_decay: float,
-                     trust_eps: float):
+                     trust_eps: float, clip: Optional[float] = None):
     """The JAX chain interpreter's LAMB step, stage for stage:
-    ``scale_by_adam`` (``repro/core/transform.py:290-317``),
-    ``add_decayed_weights`` (:161-176), ``scale_by_trust_ratio``
-    (:273-287), ``scale_by_schedule`` (:320-337), then ``w - u`` in w's
-    dtype; ``grad_norm`` is the raw gradient's norm (``optim.py:615-622``).
+    (``clip_by_global_norm``), ``scale_by_adam``
+    (``repro/core/transform.py:290-317``), ``add_decayed_weights``
+    (:161-176), ``scale_by_trust_ratio`` (:273-287), ``scale_by_schedule``
+    (:320-337), then ``w - u`` in w's dtype; ``grad_norm`` is the raw
+    gradient's norm (``optim.py:615-622``; the clip reports the same).
     Returns (new_params, new_state, stats)."""
     lr = torch.as_tensor(lr, dtype=torch.float32).cpu()
+    if clip is not None:
+        grads, gnorm = _clip_tree(grads, clip)
+    else:
+        gnorm = global_norm(grads)
     # the bias corrections divide as tensors on the gradients' device: a
     # CUDA division by a CPU scalar multiplies by its reciprocal instead
     device = next(iter(grads.values())).device
@@ -294,8 +334,7 @@ def _plain_lamb_step(grads: Tree, state: LambState, params: Tree, lr, *,
              for k, x in u.items()}
     u = {k: trust_ratio(leaf_sumsq(params[k]), leaf_sumsq(x), trust_eps)
          * x.float() for k, x in u.items()}
-    stats = {"grad_norm": global_norm(grads), "lr": lr,
-             "update_norm": global_norm(u)}
+    stats = {"grad_norm": gnorm, "lr": lr, "update_norm": global_norm(u)}
     new_p = {k: (w - lr * u[k]).to(w.dtype) for k, w in params.items()}
     return new_p, LambState(state.step + 1, new_m, new_v), stats
 
@@ -307,16 +346,16 @@ def _lamb_optimizer(schedule: Schedule, *, b1: float, b2: float, eps: float,
     """LAMB in the requested execution mode.  ``fused=None`` is the plain
     step; ``fused="multi_tensor"`` runs the engine's two passes on the
     resident ``FlatOptState`` (``m_flats``/``v_flats``) that ``init``
-    returns.  A ``LambState`` fed to the fused optimizer takes the plain
-    step, as a ``ChainOptState`` takes the interpreter step in JAX; a
-    resident state fed to the plain path reads its buffer views."""
+    returns, after a clip round where ``clip`` is given (3 launches).  A
+    ``LambState`` fed to the fused optimizer takes the plain step, as a
+    ``ChainOptState`` takes the interpreter step in JAX; a resident state
+    fed to the plain path reads its buffer views."""
     if fused not in (None, "multi_tensor"):
         raise ValueError(f"fused={fused!r} is not available for lamb; "
                          f"use fused='multi_tensor' or None")
-    if clip is not None:
-        raise NotImplementedError(f"clip {NOT_PORTED}")
     kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-              trust_eps=trust_eps)
+              trust_eps=trust_eps, clip=clip)
+    form = ("lamb", 0 if clip is None else 1, 2)
 
     @torch.no_grad()
     def step_fn(grads, state, params):
@@ -337,14 +376,130 @@ def _lamb_optimizer(schedule: Schedule, *, b1: float, b2: float, eps: float,
 
     def init(params):
         if fused == "multi_tensor":
-            return init_flat_adam_state(params)
+            return init_flat_adam_state(params, form=form)
         return LambState(0, _zeros_f32(params), _zeros_f32(params))
 
     return Optimizer(name or "lamb", init, step_fn, kind="lamb")
 
 
 # ---------------------------------------------------------------------------
-# the optimizers
+# segment plans: plain prefix stages + one fused engine tail, on the
+# ("chain", slots) FlatOptState form
+# ---------------------------------------------------------------------------
+
+def _packing_cast(updates: Tree, layout) -> Optional[torch.dtype]:
+    """Packing dtype for a plan tail's updates: None when every leaf still
+    has its parameter's dtype, f32 when an earlier stage promoted every
+    leaf (packing them at the bucket dtype would round them)."""
+    if all(updates[s.path].dtype == s.dtype
+           for b in layout.buckets for s in b.segments):
+        return None
+    if all(u.dtype == torch.float32 for u in updates.values()):
+        return torch.float32
+    raise ValueError(
+        "segment plan tail got an update tree that neither matches the "
+        "parameter dtypes leaf-for-leaf nor is uniformly f32; got dtypes "
+        f"{sorted({str(u.dtype).rsplit('.', 1)[-1] for u in updates.values()})}")
+
+
+def _plan_optimizer(tx: "T.GradientTransform", plan: "T.SegmentPlan", *,
+                    name: Optional[str] = None) -> Optimizer:
+    """``compile_chain``'s target for segment plans (plain prefix stages +
+    one fused tail) under ``fused="multi_tensor"``.
+
+    State is a ``FlatOptState`` with the ``("chain", slots)`` form: the
+    tail's momentum resident in ``u_flats`` (lamb: ``m_flats``/
+    ``v_flats``).  Each step runs the plan's prefix stages leaf by leaf
+    (as the interpreter does; zero launches), folds a clip just before
+    the tail into the clip round, and runs the tail on the engine
+    (nesterov and trailing clip included).  Stats merge left to right as
+    in the interpreter; a tail with no norm-emitting stage (msgd, lamb)
+    takes its ``grad_norm`` from the prefix's report or the raw gradient
+    norm.  A ``ChainOptState`` fed here steps on the interpreter."""
+    fused_node = plan.fused
+    kind = fused_node.kind
+    kp = dict(fused_node.kwargs)
+    schedule = kp["schedule"]
+    prefix = tuple(n for n in plan.nodes if n.op == "jnp")
+    form = ("chain", plan.slots)
+
+    def init(params):
+        if kind == "lamb":
+            return init_flat_adam_state(params, form=form)
+        return init_flat_state(params, form=form)
+
+    def flat_step(grads, state):
+        layout = state.layout
+        lr = schedule(state.step)
+        flat_in = isinstance(grads, FlatGrads)
+        if flat_in:
+            require_matching_layout(grads, layout)
+        updates = grads.tree if (flat_in and prefix) else grads
+        stats = {}
+        if prefix:
+            # the prefix reads the pre-step params: views of the buffers,
+            # which the kernels overwrite only after these stages ran
+            pview = state.params
+            for node in prefix:
+                updates, _, st = node.transform.update(updates, T.EmptyState(),
+                                                       pview)
+                stats.update(st)
+        stat_gnorm = None
+        if isinstance(updates, FlatGrads):
+            # no prefix: the packed gradients feed the tail directly
+            g_flats = list(updates.flats)
+            if kp.get("clip") is not None:
+                g_flats, stat_gnorm = _clip_flats_round(
+                    g_flats, layout, float(kp["clip"]))
+        else:
+            cast = _packing_cast(updates, layout)
+            if kp.get("clip") is not None:
+                updates, stat_gnorm = _clip_tree_round(
+                    updates, layout, float(kp["clip"]), cast_to=cast)
+            g_flats = flatten(updates, layout, cast_to=cast)
+        if stat_gnorm is None and kind in ("msgd", "lamb"):
+            # no norm-emitting stage in the tail: the prefix's report, or
+            # the interpreter's fallback, the raw gradient norm
+            stat_gnorm = (stats["grad_norm"] if "grad_norm" in stats else
+                          flat_global_norm(grads.flats, layout) if flat_in
+                          else global_norm(grads))
+        if kind == "lamb":
+            tstats = multi_tensor_lamb_step_flat(
+                layout, state.p_flats, g_flats, state.m_flats, state.v_flats,
+                count=state.step, lr=lr, b1=kp["b1"], b2=kp["b2"],
+                eps=kp["eps"], weight_decay=kp["weight_decay"],
+                trust_eps=kp["trust_eps"], stat_gnorm=stat_gnorm)
+        else:
+            tstats = multi_tensor_step_flat(
+                kind, layout, state.p_flats, g_flats, state.u_flats, lr=lr,
+                beta=kp["beta"], weight_decay=kp["weight_decay"],
+                eps=kp["eps"], trust=kp["trust"],
+                nesterov=kp.get("nesterov", False),
+                suffix_clip=kp.get("suffix_clip"), stat_gnorm=stat_gnorm)
+        stats.update(tstats)
+        return dataclasses.replace(state, step=state.step + 1), stats
+
+    @torch.no_grad()
+    def step_fn(grads, state, params):
+        if isinstance(state, FlatOptState):
+            if state.form != form:
+                raise TypeError(
+                    f"segment-plan optimizer {name!r} got a FlatOptState "
+                    f"with form {state.form!r}, expected {form!r}")
+            new_state, stats = flat_step(grads, state)
+            return None, new_state, stats
+        if not isinstance(state, T.ChainOptState):
+            raise TypeError(
+                f"segment-plan optimizer expects a FlatOptState or "
+                f"ChainOptState, got {type(state).__name__}")
+        return T.interpreter_step(tx, grads, state, params)
+
+    return Optimizer(name or f"chain[{kind}]", init, step_fn, kind=kind,
+                     plan=plan)
+
+
+# ---------------------------------------------------------------------------
+# the optimizers: chains, compiled
 # ---------------------------------------------------------------------------
 
 def sngm(schedule: Schedule, beta: float = 0.9, weight_decay: float = 0.0,
@@ -368,10 +523,12 @@ def sngm(schedule: Schedule, beta: float = 0.9, weight_decay: float = 0.0,
                          "use fused='multi_tensor' for per_tensor")
     if ema_decay is not None:
         raise NotImplementedError(f"ema_decay {NOT_PORTED}")
-    kind = "sngm_global" if norm_mode == "global" else "sngm_per_tensor"
-    return _kind_optimizer(kind, schedule, beta=beta, weight_decay=weight_decay,
-                           eps=eps, nesterov=nesterov, fused=fused,
-                           name=f"sngm[{norm_mode}]")
+    normalize = (T.normalize_by_global_norm if norm_mode == "global"
+                 else T.normalize_per_tensor)
+    tx = T.chain(T.add_decayed_weights(weight_decay), normalize(eps),
+                 T.trace(beta, nesterov=nesterov),
+                 T.scale_by_schedule(schedule))
+    return T.compile_chain(tx, fused=fused, name=f"sngm[{norm_mode}]")
 
 
 def sngd(schedule: Schedule, weight_decay: float = 0.0, eps: float = 1e-12,
@@ -386,10 +543,11 @@ def msgd(schedule: Schedule, beta: float = 0.9, weight_decay: float = 0.0,
          nesterov: bool = False, fused: Optional[str] = None) -> Optimizer:
     """Momentum SGD:  v_{t+1} = beta v_t + g_t ;  w_{t+1} = w_t - eta v_{t+1}.
     No per-leaf kernel exists for it."""
-    return _kind_optimizer("msgd", schedule, beta=beta,
-                           weight_decay=weight_decay, nesterov=nesterov,
-                           fused=_resolve_fused(fused, allowed=("multi_tensor",)),
-                           name="msgd")
+    fused = _resolve_fused(fused, allowed=("multi_tensor",))
+    tx = T.chain(T.add_decayed_weights(weight_decay),
+                 T.trace(beta, nesterov=nesterov),
+                 T.scale_by_schedule(schedule))
+    return T.compile_chain(tx, fused=fused, name="msgd")
 
 
 def lars(schedule: Schedule, beta: float = 0.9, weight_decay: float = 0.0,
@@ -400,10 +558,13 @@ def lars(schedule: Schedule, beta: float = 0.9, weight_decay: float = 0.0,
         local_lr = trust * ||w|| / (||g|| + wd * ||w|| + eps)   per tensor
         v = beta v + eta * local_lr * (g + wd * w)
         w = w - v
-    """
-    return _kind_optimizer("lars", schedule, beta=beta,
-                           weight_decay=weight_decay, trust=trust, eps=eps,
-                           fused=fused, name="lars")
+
+    The schedule scales what enters the momentum, so ``scale_by_schedule``
+    precedes ``trace`` in the chain."""
+    fused = _resolve_fused(fused)
+    tx = T.chain(T.trust_ratio(trust, weight_decay, eps),
+                 T.scale_by_schedule(schedule), T.trace(beta))
+    return T.compile_chain(tx, fused=fused, name="lars")
 
 
 def lamb(schedule: Schedule, b1: float = 0.9, b2: float = 0.999,
@@ -413,8 +574,10 @@ def lamb(schedule: Schedule, b1: float = 0.9, b2: float = 0.999,
     bias-corrected Adam direction, decoupled weight decay, per-tensor
     trust-ratio rescale, schedule last.  Stats: the raw gradient norm,
     the lr, and the trust-scaled direction's norm before the lr."""
-    return _lamb_optimizer(schedule, b1=b1, b2=b2, eps=eps,
-                           weight_decay=weight_decay, fused=fused, name="lamb")
+    tx = T.chain(T.scale_by_adam(b1, b2, eps),
+                 T.add_decayed_weights(weight_decay),
+                 T.scale_by_trust_ratio(), T.scale_by_schedule(schedule))
+    return T.compile_chain(tx, fused=fused, name="lamb")
 
 
 OPTIMIZERS = {"sngm": sngm, "sngd": sngd, "msgd": msgd, "lars": lars,

@@ -17,8 +17,9 @@ from typing import Dict
 import torch
 
 LAUNCHES: Dict[str, int] = {"paged_decode_attention": 0, "chunk_sumsq": 0,
-                            "fused_update": 0, "adam_update": 0,
-                            "scale_apply": 0, "fused_sngm_update": 0,
+                            "fused_update": 0, "fused_update_deferred": 0,
+                            "adam_update": 0, "scale_apply": 0,
+                            "fused_sngm_update": 0,
                             "lars_sqnorm": 0, "lars_update": 0,
                             "rmsnorm": 0, "flash_attention": 0}
 

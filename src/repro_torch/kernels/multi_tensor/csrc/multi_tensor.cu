@@ -12,7 +12,12 @@
 //   fused_update: ge = decay(g, p); u' = beta*u + a[r]*ge;
 //                 o  = nesterov ? beta*u' + a[r]*ge : u';
 //                 p' = (p - c*o) in p's type;  usq[r] = sum_j o[r, j]^2
-//                 p and u are updated in place.
+//                 p and u are updated in place.  The deferred-apply mode
+//                 (kernel.py:199-205, :228-231, :243-244: apply=False, for
+//                 a trailing clip that rescales the step before applying
+//                 it) writes o in fp32 to a separate buffer instead of p';
+//                 p is read only for the decay (not at all when wd == 0)
+//                 and never written.
 //   adam_update:  (LAMB pass 1) m' = b1*m + (1-b1)*g; v' = b2*v + (1-b2)*g^2;
 //                 u = (m'/bc1) / (sqrt(v'/bc2) + eps) [+ wd*p];
 //                 row sums of u^2, p^2 and g^2; m and v in place, u fresh.
@@ -25,9 +30,10 @@
 // adam_update's wd*p rounds to p's type too, then adds in fp32.
 //
 // What bounds them on this card: bytes.  chunk_sumsq reads 1 or 2 elements,
-// fused_update moves 5 (p, g, u read; p, u written), adam_update 7 (p, g,
-// m, v read; m, v, u written) and scale_apply 3 (p, u read; p written),
-// for a handful of flops each, far under the H100's flop/byte ridge.
+// fused_update moves 5 (p, g, u read; p, u written; deferred: p, g, u
+// read, o, u written, p not read when wd == 0), adam_update 7 (p, g, m, v
+// read; m, v, u written) and scale_apply 3 (p, u read; p written), for a
+// handful of flops each, far under the H100's flop/byte ridge.
 //
 // Design (simple and right first):
 //  * one warp per 1024-element row, 8 rows per block; lane l loads 16
@@ -59,79 +65,104 @@ constexpr int kWarps = 8;      // rows (warps) per block
 
 enum Decay { kNone = 0, kCastFirst = 1, kCastAfter = 2 };
 
-template <typename T, int D>
-__device__ __forceinline__ float decay(T g, T p, float wd) {
+// Vector width: lane l holds elements e = k*32*V + l*V + c of a row, with
+// V set by the narrower of the two element types (16 bytes of it per load;
+// the wider type then loads 32).  The row sum's pairing (column j with
+// j + width/2) does not depend on V.
+template <typename A, typename B>
+constexpr int kVec = 16 / (sizeof(A) < sizeof(B) ? sizeof(A) : sizeof(B));
+
+// decay(g, p) = g + wd*p with the plain version's roundings: wd*p in p's
+// type, the sum in g's type (g is p's type or fp32, so that is the
+// promoted type) unless cast_g_first.
+template <typename TG, typename TP, int D>
+__device__ __forceinline__ float decay(TG g, TP p, float wd) {
   const float gf = to_f(g);
   if (D == kNone) return gf;
-  const float wp = round_to<T>(__fmul_rn(wd, to_f(p)));
+  const float wp = round_to<TP>(__fmul_rn(wd, to_f(p)));
   if (D == kCastFirst) return __fadd_rn(gf, wp);
-  return round_to<T>(__fadd_rn(gf, wp));
+  return round_to<TG>(__fadd_rn(gf, wp));
 }
 
-template <typename T, int D>
+template <typename TX, typename TP, int D>
 __global__ void __launch_bounds__(32 * kWarps)
-chunk_sumsq_kernel(const T* __restrict__ x, const T* __restrict__ p, float wd,
+chunk_sumsq_kernel(const TX* __restrict__ x, const TP* __restrict__ p, float wd,
                    float* __restrict__ out, long long n_rows) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = kVec<TX, TP>;
   constexpr int K = kChunk / (32 * V);
   const int lane = threadIdx.x & 31;
   const long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (row >= n_rows) return;                 // whole warps leave together
   const long long base = row * kChunk + lane * V;
-  alignas(16) T xv[K][V];
-  alignas(16) T pv[K][V];
+  alignas(16) TX xv[K][V];
+  alignas(16) TP pv[K][V];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    copy16<sizeof(T) * V>(xv[k], x + base + k * 32 * V);
-    if (D != kNone) copy16<sizeof(T) * V>(pv[k], p + base + k * 32 * V);
+    copy16<sizeof(TX) * V>(xv[k], x + base + k * 32 * V);
+    if constexpr (D != kNone) copy16<sizeof(TP) * V>(pv[k], p + base + k * 32 * V);
   }
   float s[K][V];
 #pragma unroll
   for (int k = 0; k < K; ++k)
 #pragma unroll
     for (int c = 0; c < V; ++c) {
-      const float v = D == kNone ? to_f(xv[k][c]) : decay<T, D>(xv[k][c], pv[k][c], wd);
+      float v;
+      if constexpr (D == kNone) v = to_f(xv[k][c]);
+      else v = decay<TX, TP, D>(xv[k][c], pv[k][c], wd);
       s[k][c] = __fmul_rn(v, v);
     }
   const float r = row_sum<K, V>(s);
   if (lane == 0) out[row] = r;
 }
 
-template <typename T, int D, bool NESTEROV>
+// APPLY == false is the deferred mode: o goes to `out` (fp32) and p is
+// neither written nor, without decay, read.
+template <typename TP, typename TG, int D, bool NESTEROV, bool APPLY>
 __global__ void __launch_bounds__(32 * kWarps)
-fused_update_kernel(T* __restrict__ p, const T* __restrict__ g,
+fused_update_kernel(TP* __restrict__ p, const TG* __restrict__ g,
                     float* __restrict__ u, const float* __restrict__ a,
-                    float lr_c, float beta, float wd, float* __restrict__ usq,
-                    long long n_rows) {
-  constexpr int V = 16 / sizeof(T);
+                    float lr_c, float beta, float wd, float* __restrict__ out,
+                    float* __restrict__ usq, long long n_rows) {
+  constexpr int V = kVec<TP, TG>;
   constexpr int K = kChunk / (32 * V);
+  constexpr bool READ_P = APPLY || D != kNone;
   const int lane = threadIdx.x & 31;
   const long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (row >= n_rows) return;
   const long long base = row * kChunk + lane * V;
   const float ar = a[row];
-  alignas(16) T pv[K][V];
-  alignas(16) T gv[K][V];
+  alignas(16) TP pv[K][V];
+  alignas(16) TG gv[K][V];
   alignas(16) float uv[K][V];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    copy16<sizeof(T) * V>(pv[k], p + base + k * 32 * V);
-    copy16<sizeof(T) * V>(gv[k], g + base + k * 32 * V);
+    if constexpr (READ_P) copy16<sizeof(TP) * V>(pv[k], p + base + k * 32 * V);
+    copy16<sizeof(TG) * V>(gv[k], g + base + k * 32 * V);
     copy16<sizeof(float) * V>(uv[k], u + base + k * 32 * V);
   }
   float s[K][V];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
+    alignas(16) float ov[V];
 #pragma unroll
     for (int c = 0; c < V; ++c) {
-      const float age = __fmul_rn(ar, decay<T, D>(gv[k][c], pv[k][c], wd));
+      float ge;
+      if constexpr (READ_P) ge = decay<TG, TP, D>(gv[k][c], pv[k][c], wd);
+      else ge = to_f(gv[k][c]);
+      const float age = __fmul_rn(ar, ge);
       const float un = __fadd_rn(__fmul_rn(beta, uv[k][c]), age);
       const float o = NESTEROV ? __fadd_rn(__fmul_rn(beta, un), age) : un;
       uv[k][c] = un;
-      pv[k][c] = from_f<T>(__fsub_rn(to_f(pv[k][c]), __fmul_rn(lr_c, o)));
+      if constexpr (APPLY)
+        pv[k][c] = from_f<TP>(__fsub_rn(to_f(pv[k][c]), __fmul_rn(lr_c, o)));
+      else
+        ov[c] = o;
       s[k][c] = __fmul_rn(o, o);
     }
-    copy16<sizeof(T) * V>(p + base + k * 32 * V, pv[k]);
+    if constexpr (APPLY)
+      copy16<sizeof(TP) * V>(p + base + k * 32 * V, pv[k]);
+    else
+      copy16<sizeof(float) * V>(out + base + k * 32 * V, ov);
     copy16<sizeof(float) * V>(u + base + k * 32 * V, uv[k]);
   }
   const float r = row_sum<K, V>(s);
@@ -180,27 +211,27 @@ struct AdamScalars {
 // LAMB pass 1: both f32 moments in place, the bias-corrected direction
 //   u = (m'/bc1) / (sqrt(v'/bc2) + eps) [+ wd*p]
 // into a fresh f32 buffer, and the row sums of u^2, p^2 and g^2.
-template <typename T, bool WD>
+template <typename TP, typename TG, bool WD>
 __global__ void __launch_bounds__(32 * kWarps)
-adam_update_kernel(const T* __restrict__ p, const T* __restrict__ g,
+adam_update_kernel(const TP* __restrict__ p, const TG* __restrict__ g,
                    float* __restrict__ m, float* __restrict__ v,
                    float* __restrict__ u, float* __restrict__ usq,
                    float* __restrict__ psq, float* __restrict__ gsq,
                    AdamScalars sc, long long n_rows) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = kVec<TP, TG>;
   constexpr int K = kChunk / (32 * V);
   const int lane = threadIdx.x & 31;
   const long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (row >= n_rows) return;
   const long long base = row * kChunk + lane * V;
-  alignas(16) T pv[K][V];
-  alignas(16) T gv[K][V];
+  alignas(16) TP pv[K][V];
+  alignas(16) TG gv[K][V];
   alignas(16) float mv[K][V];
   alignas(16) float vv[K][V];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    copy16<sizeof(T) * V>(pv[k], p + base + k * 32 * V);
-    copy16<sizeof(T) * V>(gv[k], g + base + k * 32 * V);
+    copy16<sizeof(TP) * V>(pv[k], p + base + k * 32 * V);
+    copy16<sizeof(TG) * V>(gv[k], g + base + k * 32 * V);
     copy16<sizeof(float) * V>(mv[k], m + base + k * 32 * V);
     copy16<sizeof(float) * V>(vv[k], v + base + k * 32 * V);
   }
@@ -215,7 +246,7 @@ adam_update_kernel(const T* __restrict__ p, const T* __restrict__ g,
       const float vn = __fadd_rn(__fmul_rn(sc.b2, vv[k][c]), __fmul_rn(sc.omb2, g2));
       float d = __fdiv_rn(__fdiv_rn(mn, sc.bc1),
                           __fadd_rn(__fsqrt_rn(__fdiv_rn(vn, sc.bc2)), sc.eps));
-      if (WD) d = __fadd_rn(d, round_to<T>(__fmul_rn(sc.wd, to_f(pv[k][c]))));
+      if (WD) d = __fadd_rn(d, round_to<TP>(__fmul_rn(sc.wd, to_f(pv[k][c]))));
       mv[k][c] = mn;
       vv[k][c] = vn;
       ut[c] = d;
@@ -252,48 +283,71 @@ dim3 grid_for(long long n_rows) {
   return dim3(static_cast<unsigned>((n_rows + kWarps - 1) / kWarps));
 }
 
-template <typename T>
+// The type pairs the engine passes, as (p's, g's) codes: 0 float32,
+// 1 bfloat16.  g is p's type, or fp32 where a chain stage before the
+// engine promoted the update (a bf16 bucket then takes fp32 updates).
+enum Pair { kF32 = 0, kBF16 = 1, kBF16F32 = 2, kBadPair = -1 };
+
+Pair pair_of(int dtype, int gdtype) {
+  if (dtype == 0 && gdtype == 0) return kF32;
+  if (dtype == 1 && gdtype == 1) return kBF16;
+  if (dtype == 1 && gdtype == 0) return kBF16F32;
+  return kBadPair;
+}
+
+template <typename TX, typename TP>
 int sumsq(const void* x, const void* p, float wd, float* out, long long n_rows,
           cudaStream_t s) {
-  const T* xt = static_cast<const T*>(x);
-  const T* pt = static_cast<const T*>(p);
+  const TX* xt = static_cast<const TX*>(x);
+  const TP* pt = static_cast<const TP*>(p);
   if (p == nullptr)
-    chunk_sumsq_kernel<T, kNone><<<grid_for(n_rows), 32 * kWarps, 0, s>>>(
-        xt, pt, wd, out, n_rows);
+    chunk_sumsq_kernel<TX, TX, kNone><<<grid_for(n_rows), 32 * kWarps, 0, s>>>(
+        xt, nullptr, wd, out, n_rows);
   else
-    chunk_sumsq_kernel<T, kCastAfter><<<grid_for(n_rows), 32 * kWarps, 0, s>>>(
+    chunk_sumsq_kernel<TX, TP, kCastAfter><<<grid_for(n_rows), 32 * kWarps, 0, s>>>(
         xt, pt, wd, out, n_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, bool N>
+template <typename TP, typename TG, int D, bool N, bool A>
 int update(void* p, const void* g, float* u, const float* a, float lr_c,
-           float beta, float wd, float* usq, long long n_rows, cudaStream_t s) {
-  fused_update_kernel<T, D, N><<<grid_for(n_rows), 32 * kWarps, 0, s>>>(
-      static_cast<T*>(p), static_cast<const T*>(g), u, a, lr_c, beta, wd, usq,
-      n_rows);
+           float beta, float wd, float* out, float* usq, long long n_rows,
+           cudaStream_t s) {
+  fused_update_kernel<TP, TG, D, N, A><<<grid_for(n_rows), 32 * kWarps, 0, s>>>(
+      static_cast<TP*>(p), static_cast<const TG*>(g), u, a, lr_c, beta, wd, out,
+      usq, n_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int update_n(int nesterov, void* p, const void* g, float* u, const float* a,
-             float lr_c, float beta, float wd, float* usq, long long n_rows,
+template <typename TP, typename TG, int D, bool N>
+int update_a(void* p, const void* g, float* u, const float* a, float lr_c,
+             float beta, float wd, float* out, float* usq, long long n_rows,
              cudaStream_t s) {
-  return nesterov ? update<T, D, true>(p, g, u, a, lr_c, beta, wd, usq, n_rows, s)
-                  : update<T, D, false>(p, g, u, a, lr_c, beta, wd, usq, n_rows, s);
+  return out == nullptr
+             ? update<TP, TG, D, N, true>(p, g, u, a, lr_c, beta, wd, out, usq, n_rows, s)
+             : update<TP, TG, D, N, false>(p, g, u, a, lr_c, beta, wd, out, usq, n_rows, s);
 }
 
-template <typename T>
-int update_d(int decay_mode, int nesterov, void* p, const void* g, float* u,
-             const float* a, float lr_c, float beta, float wd, float* usq,
+template <typename TP, typename TG, int D>
+int update_n(int nesterov, void* p, const void* g, float* u, const float* a,
+             float lr_c, float beta, float wd, float* out, float* usq,
              long long n_rows, cudaStream_t s) {
+  return nesterov
+             ? update_a<TP, TG, D, true>(p, g, u, a, lr_c, beta, wd, out, usq, n_rows, s)
+             : update_a<TP, TG, D, false>(p, g, u, a, lr_c, beta, wd, out, usq, n_rows, s);
+}
+
+template <typename TP, typename TG>
+int update_d(int decay_mode, int nesterov, void* p, const void* g, float* u,
+             const float* a, float lr_c, float beta, float wd, float* out,
+             float* usq, long long n_rows, cudaStream_t s) {
   switch (decay_mode) {
     case kNone:
-      return update_n<T, kNone>(nesterov, p, g, u, a, lr_c, beta, wd, usq, n_rows, s);
+      return update_n<TP, TG, kNone>(nesterov, p, g, u, a, lr_c, beta, wd, out, usq, n_rows, s);
     case kCastFirst:
-      return update_n<T, kCastFirst>(nesterov, p, g, u, a, lr_c, beta, wd, usq, n_rows, s);
+      return update_n<TP, TG, kCastFirst>(nesterov, p, g, u, a, lr_c, beta, wd, out, usq, n_rows, s);
     case kCastAfter:
-      return update_n<T, kCastAfter>(nesterov, p, g, u, a, lr_c, beta, wd, usq, n_rows, s);
+      return update_n<TP, TG, kCastAfter>(nesterov, p, g, u, a, lr_c, beta, wd, out, usq, n_rows, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -301,32 +355,44 @@ int update_d(int decay_mode, int nesterov, void* p, const void* g, float* u,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x and p share it).  p == nullptr: the
-// raw sum of squares of x; otherwise of decay(x, p) with cast_g_first off.
+// dtype: 0 = float32, 1 = bfloat16, of x; pdtype that of p (x is p's type
+// or fp32, as g is in mt_fused_update).  p == nullptr: the raw sum of
+// squares of x; otherwise of decay(x, p) with cast_g_first off.
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int mt_chunk_sumsq(int dtype, const void* x, const void* p,
-                              float wd, float* out, long long n_rows,
-                              void* stream) {
+extern "C" int mt_chunk_sumsq(int dtype, int pdtype, const void* x,
+                              const void* p, float wd, float* out,
+                              long long n_rows, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return sumsq<float>(x, p, wd, out, n_rows, s);
-  if (dtype == 1) return sumsq<bf16_t>(x, p, wd, out, n_rows, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (p == nullptr ? pair_of(dtype, dtype) : pair_of(pdtype, dtype)) {
+    case kF32: return sumsq<float, float>(x, p, wd, out, n_rows, s);
+    case kBF16: return sumsq<bf16_t, bf16_t>(x, p, wd, out, n_rows, s);
+    case kBF16F32: return sumsq<float, bf16_t>(x, p, wd, out, n_rows, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// dtype as above (p and g share it; u, a and usq are float32).
+// dtype of p, gdtype of g as above (u, a, out and usq are float32).
 // decay_mode: 0 = wd off, 1 = cast g first, 2 = cast after the sum.
-extern "C" int mt_fused_update(int dtype, void* p, const void* g, float* u,
-                               const float* a, float lr_c, float beta,
-                               float wd, int decay_mode, int nesterov,
-                               float* usq, long long n_rows, void* stream) {
+// out == nullptr applies the step to p; otherwise the deferred mode writes
+// the direction o to out and leaves p as it is.
+extern "C" int mt_fused_update(int dtype, int gdtype, void* p, const void* g,
+                               float* u, const float* a, float lr_c,
+                               float beta, float wd, int decay_mode,
+                               int nesterov, float* out, float* usq,
+                               long long n_rows, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return update_d<float>(decay_mode, nesterov, p, g, u, a, lr_c, beta, wd, usq, n_rows, s);
-  if (dtype == 1)
-    return update_d<bf16_t>(decay_mode, nesterov, p, g, u, a, lr_c, beta, wd, usq, n_rows, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (pair_of(dtype, gdtype)) {
+    case kF32:
+      return update_d<float, float>(decay_mode, nesterov, p, g, u, a, lr_c, beta, wd, out, usq, n_rows, s);
+    case kBF16:
+      return update_d<bf16_t, bf16_t>(decay_mode, nesterov, p, g, u, a, lr_c, beta, wd, out, usq, n_rows, s);
+    case kBF16F32:
+      return update_d<bf16_t, float>(decay_mode, nesterov, p, g, u, a, lr_c, beta, wd, out, usq, n_rows, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // dtype as above (p's; g, a and ssq are float32).  p is updated in place.
@@ -346,27 +412,35 @@ extern "C" int mt_scale_apply(int dtype, void* p, const float* g,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype as above (p and g share it; m, v, u and the partials are float32).
-// m and v are updated in place; has_wd == 0 skips the decay term.
-extern "C" int mt_adam_update(int dtype, const void* p, const void* g,
-                              float* m, float* v, float* u, float* usq,
-                              float* psq, float* gsq, float bc1, float bc2,
-                              float b1, float b2, float omb1, float omb2,
-                              float eps, float wd, int has_wd,
+// dtype of p, gdtype of g as above (m, v, u and the partials are
+// float32).  m and v are updated in place; has_wd == 0 skips the decay term.
+extern "C" int mt_adam_update(int dtype, int gdtype, const void* p,
+                              const void* g, float* m, float* v, float* u,
+                              float* usq, float* psq, float* gsq, float bc1,
+                              float bc2, float b1, float b2, float omb1,
+                              float omb2, float eps, float wd, int has_wd,
                               long long n_rows, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const AdamScalars sc{bc1, bc2, b1, b2, omb1, omb2, eps, wd};
   const dim3 grid = grid_for(n_rows);
-#define REPRO_ADAM(T, W)                                                    \
-  adam_update_kernel<T, W><<<grid, 32 * kWarps, 0, s>>>(                   \
-      static_cast<const T*>(p), static_cast<const T*>(g), m, v, u, usq, psq, \
-      gsq, sc, n_rows)
-  if (dtype == 0 && has_wd) REPRO_ADAM(float, true);
-  else if (dtype == 0) REPRO_ADAM(float, false);
-  else if (dtype == 1 && has_wd) REPRO_ADAM(bf16_t, true);
-  else if (dtype == 1) REPRO_ADAM(bf16_t, false);
-  else return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_ADAM(TP, TG, W)                                               \
+  adam_update_kernel<TP, TG, W><<<grid, 32 * kWarps, 0, s>>>(              \
+      static_cast<const TP*>(p), static_cast<const TG*>(g), m, v, u, usq,  \
+      psq, gsq, sc, n_rows)
+  switch (pair_of(dtype, gdtype)) {
+    case kF32:
+      if (has_wd) REPRO_ADAM(float, float, true); else REPRO_ADAM(float, float, false);
+      break;
+    case kBF16:
+      if (has_wd) REPRO_ADAM(bf16_t, bf16_t, true); else REPRO_ADAM(bf16_t, bf16_t, false);
+      break;
+    case kBF16F32:
+      if (has_wd) REPRO_ADAM(bf16_t, float, true); else REPRO_ADAM(bf16_t, float, false);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 #undef REPRO_ADAM
   return static_cast<int>(cudaGetLastError());
 }

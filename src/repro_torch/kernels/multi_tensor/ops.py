@@ -9,8 +9,10 @@ The wrappers keep the TPU kernels' contract (``repro.kernels.
 multi_tensor.kernel``): flat buffers of a TILE multiple of elements, one
 f32 coefficient and one f32 partial per CHUNK row.  They update in place
 on either device where the JAX package declares input/output aliases:
-``p`` and ``u`` for ``fused_update``, ``m`` and ``v`` for
-``adam_update``, ``p`` for ``scale_apply``.
+``p`` and ``u`` for ``fused_update`` (``u`` only with ``apply=False``),
+``m`` and ``v`` for ``adam_update``, ``p`` for ``scale_apply``.
+``fused_update``'s deferred-apply mode counts its launches under its own
+name, ``fused_update_deferred``.
 """
 from __future__ import annotations
 
@@ -41,13 +43,14 @@ def library() -> Library:
     lib = built.lib
     if not lib.mt_chunk_sumsq.argtypes:
         P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.mt_chunk_sumsq.argtypes = [I, P, P, F, P, L, P]
+        lib.mt_chunk_sumsq.argtypes = [I, I, P, P, F, P, L, P]
         lib.mt_chunk_sumsq.restype = I
-        lib.mt_fused_update.argtypes = [I, P, P, P, P, F, F, F, I, I, P, L, P]
+        lib.mt_fused_update.argtypes = [I, I, P, P, P, P, F, F, F, I, I, P, P,
+                                        L, P]
         lib.mt_fused_update.restype = I
         lib.mt_scale_apply.argtypes = [I, P, P, P, F, P, L, P]
         lib.mt_scale_apply.restype = I
-        lib.mt_adam_update.argtypes = [I, P, P, P, P, P, P, P, P,
+        lib.mt_adam_update.argtypes = [I, I, P, P, P, P, P, P, P, P,
                                        F, F, F, F, F, F, F, F, I, L, P]
         lib.mt_adam_update.restype = I
         lib.mt_error_string.argtypes = [I]
@@ -79,6 +82,12 @@ def _check_scalar(name: str, c: torch.Tensor) -> None:
         raise ValueError(f"{name} must be a one-element f32 CPU tensor")
 
 
+def _grad_dtypes(p: torch.Tensor):
+    """The types a gradient buffer may have beside params ``p``: p's own,
+    or fp32 where a chain stage before the engine promoted the update."""
+    return (p.dtype, torch.float32)
+
+
 def _raise_on(lib, err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
@@ -88,13 +97,16 @@ def _raise_on(lib, err: int, name: str) -> None:
 def chunk_sumsq(x: torch.Tensor, p: Optional[torch.Tensor] = None, *,
                 wd: float = 0.0) -> torch.Tensor:
     """Per-CHUNK-row sum of squares of ``x``, or of ``x + wd*p`` (cast
-    after the sum) when ``p`` is given and wd != 0.  Returns (n/CHUNK,) f32."""
+    after the sum) when ``p`` is given and wd != 0; ``x`` has p's type or
+    fp32.  Returns (n/CHUNK,) f32."""
     if not on_cuda(x, "chunk_sumsq"):
         return chunk_sumsq_ref(x, p, wd=wd)
     decayed = p is not None and wd != 0.0
     _check_flat("x", x, _DTYPE_CODES, x.device)
     if decayed:
-        _check_flat("p", p, (x.dtype,), x.device)
+        _check_flat("p", p, _DTYPE_CODES, x.device)
+        if x.dtype not in _grad_dtypes(p):
+            raise TypeError(f"x: dtype {x.dtype} beside p {p.dtype}")
         if p.numel() != x.numel():
             raise ValueError(f"p has {p.numel()} elements, x {x.numel()}")
     n_rows = x.numel() // CHUNK
@@ -103,8 +115,10 @@ def chunk_sumsq(x: torch.Tensor, p: Optional[torch.Tensor] = None, *,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.mt_chunk_sumsq(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), p.data_ptr() if decayed else None,
-            float(weak_scalar(wd, x.dtype)), out.data_ptr(), n_rows, stream)
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[p.dtype if decayed else x.dtype],
+            x.data_ptr(), p.data_ptr() if decayed else None,
+            float(weak_scalar(wd, p.dtype if decayed else x.dtype)),
+            out.data_ptr(), n_rows, stream)
     _raise_on(lib, err, "chunk_sumsq")
     record_launch("chunk_sumsq")
     return out
@@ -113,27 +127,47 @@ def chunk_sumsq(x: torch.Tensor, p: Optional[torch.Tensor] = None, *,
 def fused_update(p: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
                  a_chunk: torch.Tensor, c: torch.Tensor, *, beta: float,
                  wd: float, cast_g_first: bool = False,
-                 nesterov: bool = False) -> torch.Tensor:
+                 nesterov: bool = False, apply: bool = True,
+                 out: Optional[torch.Tensor] = None):
     """Momentum + apply over one bucket, in place:
     ``u <- beta*u + a*decay(g, p)``, ``p <- (p - c*out).to(p.dtype)`` with
     ``out = beta*u_new + a*decay(g, p)`` under nesterov, else ``u_new``.
-    ``c`` is a 0-dim f32 tensor.  Returns the (n/CHUNK,) f32 row sums of
-    squares of ``out``."""
+    ``c`` is a 0-dim f32 tensor; ``g`` has p's type or fp32.  Returns the
+    (n/CHUNK,) f32 row sums of squares of ``out``.
+
+    ``apply=False`` defers the apply (a trailing clip rescales the step
+    first): ``p`` is read for the decay only and never written, ``out``
+    goes into the given contiguous f32 (n,) buffer or a fresh one, and
+    the call returns ``(out, row sums)``."""
+    if apply and out is not None:
+        raise ValueError("out is the deferred direction: only with apply=False")
     if not on_cuda(p, "fused_update"):
-        p_new, u_new, usq = fused_update_ref(
+        first, u_new, usq = fused_update_ref(
             p, g, u, a_chunk, c, beta=beta, wd=wd, cast_g_first=cast_g_first,
-            nesterov=nesterov)
-        p.copy_(p_new)
+            nesterov=nesterov, apply=apply)
+        if apply:
+            p.copy_(first)
+            u.copy_(u_new)
+            return usq
+        out = first if out is None else out.copy_(first)
         u.copy_(u_new)
-        return usq
+        return out, usq
     _check_flat("p", p, _DTYPE_CODES, p.device)
-    _check_flat("g", g, (p.dtype,), p.device)
+    _check_flat("g", g, _grad_dtypes(p), p.device)
     _check_flat("u", u, (torch.float32,), p.device)
     n_rows = p.numel() // CHUNK
     if g.numel() != p.numel() or u.numel() != p.numel():
         raise ValueError(f"p {p.numel()}, g {g.numel()}, u {u.numel()} elements")
     _check_rows("a_chunk", a_chunk, n_rows, p.device)
     _check_scalar("c", c)
+    if not apply:
+        if out is None:
+            out = torch.empty(p.numel(), dtype=torch.float32, device=p.device)
+        _check_flat("out", out, (torch.float32,), p.device)
+        if out.numel() != p.numel():
+            raise ValueError(f"out has {out.numel()} elements, p {p.numel()}")
+        if out.data_ptr() in (p.data_ptr(), g.data_ptr(), u.data_ptr()):
+            raise ValueError("out must not share memory with p, g or u")
     mode = (_DECAY_NONE if wd == 0.0 else
             _DECAY_CAST_FIRST if cast_g_first else _DECAY_CAST_AFTER)
     usq = torch.empty(n_rows, dtype=torch.float32, device=p.device)
@@ -141,13 +175,17 @@ def fused_update(p: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = lib.mt_fused_update(
-            _DTYPE_CODES[p.dtype], p.data_ptr(), g.data_ptr(), u.data_ptr(),
+            _DTYPE_CODES[p.dtype], _DTYPE_CODES[g.dtype], p.data_ptr(),
+            g.data_ptr(), u.data_ptr(),
             a_chunk.data_ptr(), float(c), float(beta),
             float(weak_scalar(wd, p.dtype)), mode, int(nesterov),
-            usq.data_ptr(), n_rows, stream)
+            None if apply else out.data_ptr(), usq.data_ptr(), n_rows, stream)
     _raise_on(lib, err, "fused_update")
-    record_launch("fused_update")
-    return usq
+    if apply:
+        record_launch("fused_update")
+        return usq
+    record_launch("fused_update_deferred")
+    return out, usq
 
 
 def scale_apply(p: torch.Tensor, g: torch.Tensor, a_chunk: torch.Tensor,
@@ -194,7 +232,7 @@ def adam_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
         v.copy_(v_new)
         return u, usq, psq, gsq
     _check_flat("p", p, _DTYPE_CODES, p.device)
-    _check_flat("g", g, (p.dtype,), p.device)
+    _check_flat("g", g, _grad_dtypes(p), p.device)
     _check_flat("m", m, (torch.float32,), p.device)
     _check_flat("v", v, (torch.float32,), p.device)
     if not g.numel() == m.numel() == v.numel() == p.numel():
@@ -210,7 +248,8 @@ def adam_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         err = lib.mt_adam_update(
-            _DTYPE_CODES[p.dtype], p.data_ptr(), g.data_ptr(), m.data_ptr(),
+            _DTYPE_CODES[p.dtype], _DTYPE_CODES[g.dtype], p.data_ptr(),
+            g.data_ptr(), m.data_ptr(),
             v.data_ptr(), u.data_ptr(), usq.data_ptr(), psq.data_ptr(),
             gsq.data_ptr(), float(bc1), float(bc2), b1, b2, 1 - b1, 1 - b2,
             eps, float(weak_scalar(wd, p.dtype)), int(wd != 0.0), n_rows,

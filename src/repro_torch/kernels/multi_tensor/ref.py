@@ -67,16 +67,21 @@ def chunk_sumsq_ref(x: torch.Tensor, p=None, *, wd: float = 0.0) -> torch.Tensor
 
 
 def fused_update_ref(p, g, u, a_chunk, c, *, beta: float, wd: float,
-                     cast_g_first: bool = False, nesterov: bool = False):
-    """Returns (p_new [p.dtype], u_new [f32], usq [(n / CHUNK,) f32]) as
-    new tensors; ``c`` is a 0-dim f32 tensor (the schedule's lr)."""
+                     cast_g_first: bool = False, nesterov: bool = False,
+                     apply: bool = True):
+    """Returns (first, u_new [f32], usq [(n / CHUNK,) f32]) as new
+    tensors; ``c`` is a 0-dim f32 tensor (the schedule's lr).  ``first``
+    is p_new [p.dtype], or with ``apply=False`` (the deferred apply of a
+    trailing clip) the f32 effective direction ``out`` (``u_new``, or the
+    nesterov look-ahead) while p is only read for the decay.  usq holds
+    the row sums of squares of ``out`` either way."""
     p2 = p.view(-1, CHUNK)
     ge = decay(g.view(-1, CHUNK), p2, wd, cast_g_first)
     a = a_chunk.view(-1, 1)
     u_new = beta * u.view(-1, CHUNK) + a * ge
     out = beta * u_new + a * ge if nesterov else u_new
-    p_new = (p2 - c * out).to(p.dtype)
-    return p_new.view(-1), u_new.view(-1), row_sum(out * out)
+    first = (p2 - c * out).to(p.dtype) if apply else out
+    return first.view(-1), u_new.view(-1), row_sum(out * out)
 
 
 def scale_apply_ref(p, g, a_chunk, c):

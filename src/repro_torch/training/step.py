@@ -29,6 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.multi_tensor import FlatGrads, FlatOptState, zeros_flats
 from repro_torch.core.optim import Optimizer, TrainState
+from repro_torch.core.transform import as_optimizer
 from repro_torch.models.runtime import Runtime
 from repro_torch.models.transformer import forward, unembed_matrix
 from repro_torch.training.loss import lm_loss
@@ -71,11 +72,14 @@ def _grad_leaves(state: TrainState):
 def make_train_step(cfg: ModelConfig, rt: Runtime, opt: Optimizer,
                     n_micro: int = 1):
     """Returns train_step(state, batch) -> (state', stats) over the unified
-    ``TrainState`` (build one with ``opt.init_state(params)``).
+    ``TrainState`` (build one with ``opt.init_state(params)``).  ``opt``
+    may also be a gradient-transform chain, compiled on the spot
+    (``core.transform.as_optimizer``).
 
     batch["tokens"]: (B, S) global batch, accumulated over ``n_micro``
     micro-batches of B / n_micro rows.  Stats stay 0-dim tensors on the
     device (no host sync inside the step)."""
+    opt = as_optimizer(opt)
 
     def train_step(state: TrainState, batch):
         B = batch["tokens"].shape[0]

@@ -343,14 +343,8 @@ def test_lamb_refusals_carry_the_jax_messages():
     with pytest.raises(ValueError) as ref_:
         jopt.lamb(jpoly(0.01, 10), fused="per_leaf")
     assert str(port.value) == str(ref_.value)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        topt._lamb_optimizer(tpoly(0.01, 10), b1=0.9, b2=0.999, eps=1e-6,
-                             clip=1.0)
     opt = topt.lamb(tpoly(0.01, 10), fused="multi_tensor")
     ts = opt.init_state(from_numpy_tree(_tree(0)))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmt.resident_lamb_step(from_numpy_tree(_tree(1)), ts.opt_state,
-                               lr=0.1, clip=1.0, **ADAM)
     with pytest.raises(AssertionError, match="eps > 0"):
         tmt.resident_lamb_step(from_numpy_tree(_tree(1)), ts.opt_state,
                                lr=0.1, b1=0.9, b2=0.999, eps=0.0)

@@ -22,6 +22,9 @@ Bounds held, and why:
     a few ulp (the row sum above) and SNGM divides by them;
   * the port's ``fused="multi_tensor"`` vs its own ``fused=None``:
     bitwise, every kind, fp32 and bf16;
+  * ``fused_update(apply=False)``, the deferred apply of a trailing
+    clip: the f32 direction and u bitwise the JAX oracle's, p untouched,
+    row sums 1e-6 relative; against Pallas interpret as for apply;
   * on the card (``cuda`` marker): each CUDA kernel vs its plain
     version, bitwise.
 """
@@ -134,6 +137,71 @@ def test_plain_fused_update_matches_jax(dtype, wd, cast_g_first, nesterov):
                                    jnp.float32(0.37), **kw)
     for want, got in ((ip, tp), (iu, tu), (iq, usq)):
         assert _rel(want, got) <= INTERPRET_REL[dtype]
+
+
+@pytest.mark.parametrize("nesterov", [False, True])
+@pytest.mark.parametrize("cast_g_first", [False, True])
+@pytest.mark.parametrize("wd", [0.0, 1e-4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_fused_update_deferred_matches_jax(dtype, wd, cast_g_first,
+                                                 nesterov):
+    """``apply=False`` (a trailing clip's pass 2): the f32 direction and
+    u bitwise the JAX oracle's, p untouched, row sums as for apply."""
+    p, g, u, a = _flat_inputs(dtype, seed=6)
+    kw = dict(beta=0.9, wd=wd, cast_g_first=cast_g_first, nesterov=nesterov)
+    tp, tu = array_to_tensor(p).clone(), torch.from_numpy(u.copy())
+    out, usq = ops.fused_update(tp, array_to_tensor(g), tu, torch.from_numpy(a),
+                                torch.tensor(0.37), apply=False, **kw)
+    assert out.dtype == torch.float32 and out.shape == (N,)
+    assert _bitwise(p, tp) and tp.dtype == TORCH_DTYPES[dtype]
+    ro, ru, rq = jref.fused_update_ref(jnp.asarray(p), jnp.asarray(g),
+                                       jnp.asarray(u), jnp.asarray(a),
+                                       jnp.float32(0.37), apply=False, **kw)
+    assert _bitwise(ro, out) and _bitwise(ru, tu)
+    assert _rel(rq, usq) <= 1e-6
+    io, iu, iq = jops.fused_update(jnp.asarray(p), jnp.asarray(g),
+                                   jnp.asarray(u), jnp.asarray(a),
+                                   jnp.float32(0.37), apply=False, **kw)
+    for want, got in ((io, out), (iu, tu), (iq, usq)):
+        assert _rel(want, got) <= INTERPRET_REL[dtype]
+
+
+@pytest.mark.parametrize("apply", [True, False])
+def test_plain_passes_take_f32_updates_beside_bf16_params(apply):
+    """A chain stage before the engine may promote a bf16 bucket's updates
+    to f32 (the JAX kernels take them so): decay, update and norm pass
+    round as the JAX oracles do."""
+    p, _, u, a = _flat_inputs("bfloat16", seed=7)
+    g = np.asarray(np.random.RandomState(8).randn(N), np.float32)
+    kw = dict(beta=0.9, wd=1e-2, apply=apply)
+    tp, tu = array_to_tensor(p).clone(), torch.from_numpy(u.copy())
+    got = ops.fused_update(tp, torch.from_numpy(g), tu, torch.from_numpy(a),
+                           torch.tensor(0.37), **kw)
+    first, usq = (tp, got) if apply else got
+    rf, ru, rq = jref.fused_update_ref(jnp.asarray(p), jnp.asarray(g),
+                                       jnp.asarray(u), jnp.asarray(a),
+                                       jnp.float32(0.37), **kw)
+    assert _bitwise(rf, first) and _bitwise(ru, tu) and _rel(rq, usq) <= 1e-6
+    assert first.dtype == (torch.bfloat16 if apply else torch.float32)
+    sq = ops.chunk_sumsq(torch.from_numpy(g), array_to_tensor(p), wd=1e-2)
+    want = jref.chunk_sumsq_ref(jnp.asarray(g), jnp.asarray(p), wd=1e-2)
+    assert _rel(want, sq) <= 1e-6
+
+
+def test_deferred_wrapper_writes_the_given_buffer_and_leaves_p():
+    p, g, u, a = _flat_inputs("float32", seed=9)
+    tp, tu = torch.from_numpy(p.copy()), torch.from_numpy(u.copy())
+    buf = torch.full((N,), 7.0)
+    reset_launches()
+    out, _ = ops.fused_update(tp, torch.from_numpy(g), tu, torch.from_numpy(a),
+                              torch.tensor(0.1), beta=0.9, wd=0.0, apply=False,
+                              out=buf)
+    assert out is buf and torch.equal(tp, torch.from_numpy(p))
+    assert torch.equal(buf, tu)           # no nesterov: the direction is u_new
+    assert launch_counts()["fused_update_deferred"] == 0
+    with pytest.raises(ValueError, match="apply=False"):
+        ops.fused_update(tp, torch.from_numpy(g), tu, torch.from_numpy(a),
+                         torch.tensor(0.1), beta=0.9, wd=0.0, out=buf)
 
 
 def test_wd_zero_keeps_negative_zero_gradients():
@@ -416,6 +484,21 @@ def test_cuda_fused_update_matches_plain_bitwise(dtype):
                 torch.cuda.synchronize()
                 assert _bitwise(kp, rp) and _bitwise(ku, ru)
                 assert _bitwise(kq, rq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_fused_update_deferred_matches_plain_bitwise(dtype):
+    p, g, u, a = _cuda_inputs(dtype)
+    for wd in (0.0, 1e-4):
+        for nesterov in (False, True):
+            kw = dict(beta=0.9, wd=wd, nesterov=nesterov, apply=False)
+            ro, ru, rq = ref.fused_update_ref(p, g, u, a, torch.tensor(0.37), **kw)
+            kp, ku = p.clone(), u.clone()
+            ko, kq = ops.fused_update(kp, g, ku, a, torch.tensor(0.37), **kw)
+            torch.cuda.synchronize()
+            assert _bitwise(kp, p) and _bitwise(ko, ro) and _bitwise(ku, ru)
+            assert _bitwise(kq, rq)
 
 
 def test_zero_dim_arrays_cross_with_their_shape():
