@@ -81,7 +81,9 @@ Phases, each raising on failure:
      versions at small shapes over every build variant (rmsnorm: a warp
      or a block a row, staged or read twice, 16-, 8-byte and one-element
      loads, fp32 and bf16 x and scale; flash: hd 64, 128, 256, MHA and
-     GQA, ragged S, causal, window, softcap, non-causal, fp32 and bf16);
+     GQA, ragged S, causal, window, softcap, non-causal, fp32 and bf16,
+     and in fp32 every shape and option of the ``cuda``-marked test too,
+     each fp32 output the same bits on a second call);
  12. this slice's path: ``kernels.rmsnorm.ops.rmsnorm`` on x of
      gemma-2b's d_model at phase 9's batch (fp32, bf16) and a d = 300
      tail case, ``kernels.flash_attention.ops.attention`` at gemma-2b
@@ -91,14 +93,19 @@ Phases, each raising on failure:
  13. each of those outputs against the kernel's plain version and the
      port's model function (``layers.rmsnorm``, ``layers._sdpa_seq``):
      rmsnorm fp32 1e-5, flash attention fp32 2e-5 abs, and in bf16 that
-     plus one bf16 step of the value (2^-7 |y|); the window/softcap
-     cases must fail against the plain version with the softcap dropped
-     or the window edge moved by one key;
- 14. their times against their bounds, beside the plain versions and
-     ``F.rms_norm`` / ``F.scaled_dot_product_attention`` (causal, no
-     window or softcap only); for each bf16 flash case its TFLOP/s, its
-     time over the fp32 kernel's and SDPA's, and its kernel's registers,
-     spills and tensor-core instructions (``cuobjdump -sass``);
+     plus one bf16 step of the value (2^-7 |y|); each fp32 flash output
+     the same bits on a second call; the window/softcap cases must fail
+     against the plain version with the softcap dropped or the window
+     edge moved by one key;
+ 14. every fp32 flash kernel's registers, spills and tensor-core
+     instructions (``cuobjdump -sass``; a spill or no HMMA/HGMMA fails);
+     then the times against their bounds (fp32 flash: three TF32
+     products at the TF32 rate, the CUDA-core bound logged beside it),
+     beside the plain versions and ``F.rms_norm`` /
+     ``F.scaled_dot_product_attention`` (causal, no window or softcap
+     only); for each flash case its TFLOP/s, its time over SDPA's (bf16:
+     and over the fp32 kernel's), and its kernel's registers, spills and
+     tensor-core instructions;
  15. ``fused_update(apply=False)`` (the deferred apply a trailing clip
      runs) against its plain version, bitwise: phase 6's grid, fp32
      updates beside bf16 params (what a promoting chain stage hands the
@@ -158,6 +165,10 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12                 # CUDA cores: the kernel's fp32 FMAs
 BF16_FLOPS = 989e12                # tensor cores, dense bf16
+TF32_FLOPS = 495e12                # tensor cores, dense TF32: fp32 flash
+# attention's products run in 3xTF32, three TF32 products for each fp32
+# one, so its bound is 3 x its fp32 flops at this rate
+TF32_PRODUCTS = 3
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}     # kernel vs plain, max abs
 # phase 4: |logits(kernel path) - logits(gather path)| <= LOGIT_REL x max|logits|.
 # fp32 compute holds the whole path tightly: the two attention paths sum
@@ -1744,7 +1755,10 @@ def phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref):
     and of one element (4102, 120,002, and a d = 256 x that starts 4
     bytes into its buffer); flash attention at hd 64, 128, 256, MHA
     and GQA, ragged S, causal, window, softcap (scores of std 2), both
-    together, non-causal and non-causal with a window, fp32 and bf16."""
+    together, non-causal and non-causal with a window, fp32 and bf16;
+    fp32 also at every shape and option of the ``cuda``-marked
+    ``test_cuda_kernel_matches_plain`` (gemma-2b prefill's shape, a
+    window of 128), each fp32 output the same bits on a second call."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     rms_spec = {}
@@ -1756,11 +1770,13 @@ def phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref):
     kws = [dict(causal=True), dict(causal=True, window=100),
            dict(causal=True, softcap=50.0), dict(causal=True, window=100, softcap=30.0),
            dict(causal=False), dict(causal=False, window=64)]
+    shapes = [(2, 256, 4, 4, 64), (2, 512, 4, 2, 64), (2, 256, 8, 1, 128),
+              (1, 200, 4, 2, 128), (2, 130, 8, 1, 256)]
     fa_spec = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in ((2, 256, 4, 4, 64), (2, 512, 4, 2, 64), (2, 256, 8, 1, 128),
-                      (1, 200, 4, 2, 128), (2, 130, 8, 1, 256)):
-            for i, kw in enumerate(kws):
+        fp32 = dtype == torch.float32          # fp32: the cuda test's grid as well
+        for shape in shapes + ([(8, 512, 8, 1, 256)] if fp32 else []):
+            for i, kw in enumerate(kws + ([dict(causal=True, window=128)] if fp32 else [])):
                 fa_spec[(shape, i, dtype)] = (shape, kw, dtype,
                                               Q_SCALE_LOCAL if "softcap" in kw else 1.0)
     rms, fa = ops_inputs(torch, gen, rms_spec, fa_spec)
@@ -1778,6 +1794,7 @@ def phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref):
                                      f"offset {xc.data_ptr() % 16}: {r:.3g} x the bound")
             worst[("rmsnorm", dtype)] = max(worst.get(("rmsnorm", dtype), 0.0), r)
             n_rms += 1
+    n_again = 0
     for (shape, i, dtype), ((q, k, v), kw) in fa.items():
         o = fa_ops.attention(q, k, v, **kw)
         r = over_bound(torch, o, fa_ref.attention_ref(q, k, v, **kw),
@@ -1785,11 +1802,17 @@ def phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref):
         if r > 1 or not bool(torch.isfinite(o).all()):
             raise AssertionError(f"flash_attention {shape} {kw} {dtype}: "
                                  f"{r:.3g} x the bound")
+        if dtype == torch.float32:
+            if not torch.equal(fa_ops.attention(q, k, v, **kw), o):
+                raise AssertionError(f"flash_attention {shape} {kw} {dtype}: a "
+                                     f"second call gave other bits")
+            n_again += 1
         worst[("flash_attention", dtype)] = max(
             worst.get(("flash_attention", dtype), 0.0), r)
     torch.cuda.synchronize()
     log(f"op kernels vs plain on {n_rms} rmsnorm and {len(fa)} flash "
-        f"cases: largest share of the bound "
+        f"cases ({n_again} fp32 ones the same bits on a second call): "
+        f"largest share of the bound "
         + ", ".join(f"{n} {str(d).split('.')[-1]} {r:.3g}"
                     for (n, d), r in worst.items()))
 
@@ -1844,7 +1867,7 @@ def phase_ops_path(torch, kernels, rms_ops, fa_ops, cases):
     return outs, launches
 
 
-def phase_ops_check(torch, rms_ref, fa_ref, layers, cases, outs):
+def phase_ops_check(torch, rms_ref, fa_ops, fa_ref, layers, cases, outs):
     """Each op's path output against its plain version and against the
     port's model function (``layers.rmsnorm``, ``layers._sdpa_seq``):
     fp32 within OPS_TOL, bf16 within one bf16 step of the value more
@@ -1853,7 +1876,8 @@ def phase_ops_check(torch, rms_ref, fa_ref, layers, cases, outs):
     more; that is added to its bound.  Then the window/softcap cases
     show that they can fail a wrong kernel: the plain version with the
     softcap dropped, or with the window edge moved by one key either
-    way, must break the bound against the kernel's output."""
+    way, must break the bound against the kernel's output.  A second call
+    of the fp32 flash kernel must give the same bits."""
     rms, fa = cases
     errs = {"rmsnorm": {}, "flash_attention": {}}
     for (name, case), o in outs.items():
@@ -1885,6 +1909,10 @@ def phase_ops_check(torch, rms_ref, fa_ref, layers, cases, outs):
                                  f"x the bound")
         errs[name][case] = e_plain
         del plain, model
+        if name == "flash_attention" and o.dtype == torch.float32:
+            if not torch.equal(fa_ops.attention(q, k, v, **kw), o):
+                raise AssertionError(f"{case}: a second call gave other bits")
+            log(f"  {case}: a second call gave the same bits")
         if name == "flash_attention" and "softcap" in kw:
             faults = {"no softcap": dict(kw, softcap=0.0),
                       "window + 1": dict(kw, window=kw["window"] + 1),
@@ -1948,13 +1976,13 @@ def kernel_resources(lib):
     return res
 
 
-def bf16_flash_resources(resources, hd):
-    """The entries of ``kernel_resources`` for the bf16 flash kernel at
-    head dim hd: the one whose name says bf16 and whose first template
-    argument is hd (``<hd,`` or ``<(int)hd,`` demangled, ``ILi<hd>E``
-    mangled)."""
+def flash_resources(resources, kind, hd):
+    """The entries of ``kernel_resources`` for a flash kernel at head dim
+    hd: the one whose name says ``kind`` (``bf16`` or ``tf32``, the fp32
+    kernel) and whose first template argument is hd (``<hd,``, ``<hd>``
+    or with ``(int)`` demangled, ``ILi<hd>E`` mangled)."""
     return {k: r for k, r in resources.items()
-            if "bf16_kernel" in k and re.search(rf"(<|ILi)(\(int\))?{hd}(,|E)", k)}
+            if f"{kind}_kernel" in k and re.search(rf"(<|ILi)(\(int\))?{hd}(,|>|E)", k)}
 
 
 def phase_ops_timing(torch, rms_ops, rms_ref, fa_ops, fa_ref, cases, errs,
@@ -1962,10 +1990,12 @@ def phase_ops_timing(torch, rms_ops, rms_ref, fa_ops, fa_ref, cases, errs,
     """Kernel, plain and library times of each full-width case (L2 flushed
     and the host's enqueue kept out of the window, see ``time_kernel``),
     against the bound worked out from its shapes, the operations at the
-    card's peak for the inputs' type (fp32 on CUDA cores, bf16 on tensor
-    cores).  Each bf16 flash case also logs its rate, its time over the
-    fp32 kernel's and SDPA's from this call, and its kernel's registers,
-    spills and tensor-core instructions.  The kernels line carries
+    card's peak for the inputs' type (rmsnorm fp32 on CUDA cores; flash
+    attention bf16 on tensor cores, fp32 as three TF32 products on
+    tensor cores, the CUDA-core bound logged beside it).  Each flash case
+    also logs its rate, its time over SDPA's (and a bf16 case over the
+    fp32 kernel's) from this call, and its kernel's registers, spills and
+    tensor-core instructions.  The kernels line carries
     gemma-2b's bf16 rmsnorm and bf16 prefill, SDPA's time as the
     latter's library call."""
     import torch.nn.functional as F
@@ -1990,6 +2020,18 @@ def phase_ops_timing(torch, rms_ops, rms_ref, fa_ops, fa_ref, cases, errs,
             f"({nbytes:,} bytes), {100 * row['bound_ms'] / ms:.1f} % of it")
         rows[case] = row
     resources = kernel_resources(fa_ops.library())
+    for hd in fa_ops.HEAD_DIMS:            # every fp32 variant: tensor cores, no spill
+        found = flash_resources(resources, "tf32", hd)
+        if len(found) != 1:
+            raise AssertionError(f"fp32 flash kernel at hd {hd}: {list(found)} in "
+                                 f"{list(resources)}")
+        for name, r in found.items():
+            log(f"fp32 flash kernel {name}: {r['registers']} registers, "
+                f"{r['spill_bytes']} bytes spilled, SASS HGMMA {r['HGMMA']} HMMA "
+                f"{r['HMMA']}")
+            if r["spill_bytes"] or (r["HMMA"] is not None and not (r["HMMA"] or r["HGMMA"])):
+                raise AssertionError(f"fp32 flash kernel {name}: spills or runs off "
+                                     f"the tensor cores: {r}")
     for case, ((q, k, v), kw) in fa.items():
         B, S, H, hd = q.shape
         pairs = visible_pairs(S, kw["causal"], kw.get("window", 0))
@@ -2011,25 +2053,29 @@ def phase_ops_timing(torch, rms_ops, rms_ref, fa_ops, fa_ref, cases, errs,
             del qh, kh, vh
         ms2 = time_calls(torch, lambda: fa_ops.attention(q, k, v, **kw), n)
         bf16 = q.dtype == torch.bfloat16
-        row = kernel_row("flash_attention", FA_SOURCE,
-                         errs["flash_attention"][case], ms, plain_ms, nbytes,
-                         flops, lib_ms, BF16_FLOPS if bf16 else FP32_FLOPS,
-                         enqueue_ms=enq)
+        work, rate, peak = (flops, BF16_FLOPS, "bf16 tensor-core") if bf16 else (
+            TF32_PRODUCTS * flops, TF32_FLOPS,
+            f"TF32 tensor-core peak, x{TF32_PRODUCTS} for 3xTF32; on CUDA cores "
+            f"{flops / FP32_FLOPS * 1e3:.4f} ms at the fp32")
+        row = kernel_row("flash_attention", FA_SOURCE, errs["flash_attention"][case],
+                         ms, plain_ms, nbytes, work, lib_ms, rate, enqueue_ms=enq)
         log(f"flash_attention {case} {kw}: kernel {ms:.4f} / {ms2:.4f} ms (host "
             f"enqueue {enq:.4f} ms), plain {plain_ms:.4f} ms, {lib_note}; bound "
             f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({flops:,} flops over "
-            f"{pairs:,} visible pairs a head at the "
-            f"{'bf16 tensor-core' if bf16 else 'fp32'} peak, {nbytes:,} bytes); "
+            f"{pairs:,} visible pairs a head at the {peak} peak, {nbytes:,} "
+            f"bytes), {100 * row['bound_ms'] / ms:.1f} % of it; "
             f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+        vs_lib = f"{ms / lib_ms:.3g}x SDPA's time" if lib_ms else "no SDPA"
+        vs_fp32 = ""
         if bf16:
             fp32 = rows[case.replace("bf16", "fp32")]["ms"]
-            vs_lib = f"{ms / lib_ms:.3g}x SDPA's time" if lib_ms else "no SDPA"
-            log(f"  {case}: {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
-                f"{ms / fp32:.3g}x the fp32 kernel's time ({fp32:.4f} ms), "
-                f"{vs_lib}; kernel "
-                + "; ".join(f"{k}: {r['registers']} registers, {r['spill_bytes']} "
-                            f"bytes spilled, SASS HGMMA {r['HGMMA']} HMMA {r['HMMA']}"
-                            for k, r in bf16_flash_resources(resources, hd).items()))
+            vs_fp32 = f"{ms / fp32:.3g}x the fp32 kernel's time ({fp32:.4f} ms), "
+        log(f"  {case}: {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {vs_fp32}{vs_lib}; "
+            f"kernel "
+            + "; ".join(f"{k}: {r['registers']} registers, {r['spill_bytes']} "
+                        f"bytes spilled, SASS HGMMA {r['HGMMA']} HMMA {r['HMMA']}"
+                        for k, r in flash_resources(resources, "bf16" if bf16 else "tf32",
+                                                    hd).items()))
         rows[case] = row
         torch.cuda.empty_cache()
     picked = {"rmsnorm": rows["gemma-2b bf16"],
@@ -2149,7 +2195,7 @@ def main(argv=None) -> int:
         phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
         cases = ops_cases(torch)
         outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)
-        ops_errs = phase_ops_check(torch, rms_ref, fa_ref, layers, cases, outs)
+        ops_errs = phase_ops_check(torch, rms_ref, fa_ops, fa_ref, layers, cases, outs)
         del outs
         rows.update(phase_ops_timing(torch, rms_ops, rms_ref, fa_ops, fa_ref, cases,
                                      ops_errs, ops_launches))

@@ -14,17 +14,59 @@
 // softmax and the accumulator are fp32, the output in q's type.  Two
 // kernels, one per input type:
 //
-// fp32 (flash_fwd_kernel): the TPU kernel's fp32 arithmetic on CUDA cores
-// (67 TFLOP/s).  Bound by operations: 4 * hd flops per (query, key) pair
-// for 2 * hd * 4 bytes of K/V read once per tile.  One block of 256
-// threads (16 x 16) per (batch, query head, tile of 64 queries), a loop
-// over the tiles of 64 keys that can contribute.  The scaled Q tile (q *
-// scale rounded to fp32, as the TPU kernel does), the K tile and then the
-// V tile (in one buffer) and the probability tile live in dynamic shared
-// memory, rows padded by 4 floats so that the 16-byte reads of a
-// quarter-warp hit distinct banks.  Each thread computes a 4 x 4 block of
-// scores (columns tx + 16 j) and owns 4 output rows x hd/16 columns of the
-// accumulator in registers.  One warp per row runs the online softmax.
+// fp32 (flash_tf32_kernel): both products on the tensor cores in 3xTF32,
+// wgmma m64nNk8 with tf32 inputs and fp32 sums.  Each fp32 operand x is
+// split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna: round to
+// nearest, ties away; the unit is never left to drop low bits), and a
+// product is lo.hi + hi.lo + hi.hi, small terms first.  That keeps ~22
+// bits of each operand, so the fp32 bound (2e-5) holds where one TF32
+// product misses it by ~100x.  Bound by operations: 3 x 4 hd flops per
+// visible (query, key) pair at the TF32 rate (495 TFLOP/s); the bytes
+// (q, k, v read once, o written once) take under half of that time at
+// the shapes timed.  What held the CUDA-core kernel back, and what this
+// one does about it:
+//  * CUDA cores only: both products are wgmma; the three products of a
+//    k-step read the same shared-memory tiles, so the split costs shared
+//    memory, not extra copies from device memory.
+//  * Synchronous loads: K and V arrive by cp.async (rows past S
+//    zero-filled), V(t) while Q K(t)^T is multiplied, K(t + 1) while the
+//    softmax and P V(t) run.  Each thread splits the K chunks it copied,
+//    in place (hi where the copy landed, lo beside it), so each element
+//    is split once per block.
+//  * Scores through shared memory: S is a wgmma accumulator and the
+//    online softmax runs on it in registers (a row's max and sum over
+//    the 4 lanes of a quad by a fixed xor tree); P goes back into wgmma
+//    as register A fragments: the 8 keys of a k-step go to the MMA's
+//    slots in the order (0, 2, 4, 6, 1, 3, 5, 7), so P's A fragment is
+//    exactly the accumulator's registers (a thread holds keys 2c, 2c + 1
+//    of a row), and V^T is written in that key order.  A sum over keys
+//    does not depend on their order.
+//  * K/V read again per query head: a block reads its kv head's tiles
+//    (kh = h / (H / K), never copied per query head), from L2 for the
+//    query heads after the first; serving several query heads from one
+//    block was not tried.
+//  * Layout: tf32 wgmma takes its shared-memory operands only K-major, so
+//    K (keys x head dim) is used as stored and V is transposed: after
+//    V(t) lands raw, each lane takes a key and writes V^T hi and lo with
+//    the 128-byte swizzle (32 slots of one row a store).  Q is split once
+//    into the same layout at hd 64 and 128 (each warpgroup takes 64 query
+//    rows, A from shared memory); at hd 256 Q, split, would not fit
+//    beside K and V (227 KB a block), so it stays raw and each warpgroup
+//    splits its A fragments in registers at each use, on half the head
+//    dim: the two warpgroups add their partial scores through shared
+//    memory in the same order, and each keeps half of O.
+//  * Numerics: q * scale is rounded to fp32 before the product, as the
+//    TPU kernel folds it; softcap * tanhf(s * (1 / softcap)) (within an
+//    ulp of the quotient; accurate tanhf); the mask sets -2e38, the
+//    running max starts there, alpha = exp(m_prev - m_new); exp(x) is
+//    2^(x log2 e) on the SFU (ex2.approx, 2 ulp); the denominator sums
+//    the fp32 p and is clamped at 1e-30, o / l an IEEE quotient.  The
+//    MMA truncates its fp32 sum, so a long chain of MMAs into one
+//    accumulator drifts toward zero (one chain over all of hd 256 breaks
+//    the 2e-5 bound on an H100 at scores of std 2): Q K^T sums each four
+//    k-steps of 8, and P V each key tile, in a fresh accumulator that an
+//    IEEE add then puts into S or O.  Every sum has a fixed order, so a
+//    second call gives the same bits.
 //
 // bf16 (flash_bf16_kernel): both products on the tensor cores, wgmma
 // m64nNk16 with bf16 inputs and fp32 sums.  Bound by bytes at gemma-2b
@@ -85,250 +127,8 @@
 namespace {
 
 using repro::bf16_t;
-using repro::from_f;
-using repro::load_pack;
-using repro::Pack;
-using repro::store_pack;
-using repro::to_f;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -2.0e38f;
-
-template <int HD, int BQ, int BK>
-struct Tile {
-  static constexpr int RQ = BQ / 16;        // score and output rows a thread
-  static constexpr int RK = BK / 16;        // score columns a thread
-  static constexpr int NV = HD / 64;        // 4-wide output column groups
-  static constexpr int RS = HD + 4;         // Q/K/V row stride in floats
-  static constexpr int PS = BK + 4;         // probability row stride
-  static constexpr int kFloats = BQ * RS + BK * RS + BQ * PS + 3 * BQ;
-  static constexpr int kBytes = kFloats * 4;
-};
-
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p) {
-  const Pack<T, 4> v = load_pack<T, 4>(p);
-  return make_float4(to_f(v.v[0]), to_f(v.v[1]), to_f(v.v[2]), to_f(v.v[3]));
-}
-
-__device__ __forceinline__ float get(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-// rows [r0, r0 + n) of a (S, ., HD) tensor, starting at `base` with
-// `stride` elements between positions, into smem rows of RS floats
-// (times `mul`); rows at or past S are zeros
-template <typename T, int HD, int RS, int N>
-__device__ __forceinline__ void load_rows(float* dst, const T* base,
-                                          long long stride, int r0, int S,
-                                          float mul) {
-  for (int i = threadIdx.x; i < N * HD / 4; i += kThreads) {
-    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < S) {
-      f = load4(base + (r0 + r) * stride + c);
-      f.x = __fmul_rn(f.x, mul);
-      f.y = __fmul_rn(f.y, mul);
-      f.z = __fmul_rn(f.z, mul);
-      f.w = __fmul_rn(f.w, mul);
-    }
-    *reinterpret_cast<float4*>(dst + r * RS + c) = f;
-  }
-}
-
-template <typename T, int HD, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int K, int n_qt, int causal, int window, float softcap,
-                 float scale) {
-  using L = Tile<HD, BQ, BK>;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* kv_s = q_s + BQ * L::RS;
-  float* p_s = kv_s + BK * L::RS;
-  float* m_s = p_s + BQ * L::PS;
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.x / n_qt;
-  const int q0 = (blockIdx.x % n_qt) * BQ;
-  const int b = bh / H, h = bh % H;
-  const int kh = h / (H / K);
-  const long long q_stride = static_cast<long long>(H) * HD;
-  const long long kv_stride = static_cast<long long>(K) * HD;
-  const T* qb = q + (static_cast<long long>(b) * S * H + h) * HD;
-  const T* kb = k + (static_cast<long long>(b) * S * K + kh) * HD;
-  const T* vb = v + (static_cast<long long>(b) * S * K + kh) * HD;
-
-  load_rows<T, HD, L::RS, BQ>(q_s, qb, q_stride, q0, S, scale);
-  for (int r = tid; r < BQ; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-  float acc[L::RQ][L::NV][4];
-#pragma unroll
-  for (int i = 0; i < L::RQ; ++i)
-#pragma unroll
-    for (int n = 0; n < L::NV; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
-
-  // the key tiles that can hold a visible key for queries [q0, q_last]
-  const int q_last = min(q0 + BQ, S) - 1;
-  int t_hi = (S - 1) / BK;
-  if (causal) t_hi = min(t_hi, q_last / BK);
-  const int t_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
-
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();                     // the last tile's PV is done
-    load_rows<T, HD, L::RS, BK>(kv_s, kb, kv_stride, k0, S, 1.f);
-    __syncthreads();
-
-    float sc[L::RQ][L::RK];
-#pragma unroll
-    for (int i = 0; i < L::RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < L::RK; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qv[L::RQ], kv[L::RK];
-#pragma unroll
-      for (int i = 0; i < L::RQ; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(q_s + (ty * L::RQ + i) * L::RS + d);
-#pragma unroll
-      for (int j = 0; j < L::RK; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(kv_s + (tx + 16 * j) * L::RS + d);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int i = 0; i < L::RQ; ++i)
-#pragma unroll
-          for (int j = 0; j < L::RK; ++j)
-            sc[i][j] = fmaf(get(qv[i], e), get(kv[j], e), sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < L::RQ; ++i) {
-      const int r = ty * L::RQ + i;
-#pragma unroll
-      for (int j = 0; j < L::RK; ++j) {
-        const int c = tx + 16 * j;
-        const int qi = q0 + r, kj = k0 + c;
-        float s = sc[i][j];
-        if (softcap > 0.f) s = __fmul_rn(softcap, tanhf(__fdiv_rn(s, softcap)));
-        bool ok = kj < S;
-        if (causal) ok = ok && kj <= qi;
-        if (window > 0) ok = ok && kj > qi - window;
-        p_s[r * L::PS + c] = ok ? s : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per row
-    for (int r = warp; r < BQ; r += kWarps) {
-      float sv[BK / 32];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        sv[j] = p_s[r * L::PS + lane + 32 * j];
-        mx = fmaxf(mx, sv[j]);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const float p = expf(sv[j] - m_new);
-        p_s[r * L::PS + lane + 32 * j] = p;
-        sum = __fadd_rn(sum, p);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = __fadd_rn(__fmul_rn(alpha, l_s[r]), sum);
-        m_s[r] = m_new;
-      }
-    }
-    load_rows<T, HD, L::RS, BK>(kv_s, vb, kv_stride, k0, S, 1.f);
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < L::RQ; ++i) {
-      const float a = a_s[ty * L::RQ + i];
-#pragma unroll
-      for (int n = 0; n < L::NV; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][n][e] = __fmul_rn(acc[i][n][e], a);
-    }
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pr[L::RQ];
-#pragma unroll
-      for (int i = 0; i < L::RQ; ++i) pr[i] = p_s[(ty * L::RQ + i) * L::PS + j];
-#pragma unroll
-      for (int n = 0; n < L::NV; ++n) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(kv_s + j * L::RS + n * 64 + tx * 4);
-#pragma unroll
-        for (int i = 0; i < L::RQ; ++i) {
-          acc[i][n][0] = fmaf(pr[i], vv.x, acc[i][n][0]);
-          acc[i][n][1] = fmaf(pr[i], vv.y, acc[i][n][1]);
-          acc[i][n][2] = fmaf(pr[i], vv.z, acc[i][n][2]);
-          acc[i][n][3] = fmaf(pr[i], vv.w, acc[i][n][3]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  T* ob = o + (static_cast<long long>(b) * S * H + h) * HD;
-#pragma unroll
-  for (int i = 0; i < L::RQ; ++i) {
-    const int r = ty * L::RQ + i;
-    if (q0 + r >= S) continue;
-    const float den = fmaxf(l_s[r], 1e-30f);
-#pragma unroll
-    for (int n = 0; n < L::NV; ++n) {
-      Pack<T, 4> out;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) out.v[e] = from_f<T>(__fdiv_rn(acc[i][n][e], den));
-      store_pack(ob + (q0 + r) * q_stride + n * 64 + tx * 4, out);
-    }
-  }
-}
-
-template <typename T, int HD, int BQ, int BK>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int K, int causal, int window, float softcap, float scale,
-           cudaStream_t s) {
-  using L = Tile<HD, BQ, BK>;
-  auto kernel = flash_fwd_kernel<T, HD, BQ, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qt = (S + BQ - 1) / BQ;
-  const long long blocks = static_cast<long long>(B) * H * n_qt;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, L::kBytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, K, n_qt, causal,
-      window, softcap, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// fp32 tiles: 64 queries x 64 keys (151 KB of shared memory at hd 256)
-constexpr int kBlkQ = 64;
-constexpr int kBlkK = 64;
 
 // ---------------------------------------------------------------------------
 // bf16: both products on the tensor cores (wgmma)
@@ -432,6 +232,10 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // keep the compiler from moving accesses of accumulator registers across
 // an asynchronous wgmma
@@ -741,6 +545,571 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 template <int HD>
 constexpr int bf16_kv_tile() { return HD == 64 ? 128 : 64; }
 
+// ---------------------------------------------------------------------------
+// fp32: both products on the tensor cores in 3xTF32 (wgmma)
+// ---------------------------------------------------------------------------
+
+// The fp32 kernel's shape at head dim HD.  Both products by wgmma, two
+// warpgroups a block, on K split into hi and lo and on V^T likewise,
+// both in shared memory in the 128-byte-swizzle layout (slabs of 32
+// columns or keys, rows of 128 bytes, 16-byte chunk ch of row r at chunk
+// ch ^ (r % 8)).  QSPLIT (hd 64, 128): Q is split once, into the same
+// layout; each warpgroup takes 64 query rows over the whole head dim
+// (128 queries a block).  Else (hd 256, where a split Q does not fit
+// beside K and V): Q stays raw and is split at each use into register
+// fragments; both warpgroups take the block's 64 rows, each on half the
+// head dim (NH = 2): their partial scores are summed through shared
+// memory, in the same order in both, and each keeps its half of O.
+template <int HD>
+struct Tf32Tile {
+  static constexpr bool QSPLIT = HD != 256;
+  static constexpr int BK = HD == 64 ? 64 : 32;
+  static constexpr int NH = QSPLIT ? 1 : 2;
+  static constexpr int kWarps = 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBlkQ = 64 * 2 / NH;           // queries a block
+  static constexpr int HDW = HD / NH;                 // head-dim columns a warpgroup
+  static constexpr int NT = BK / 8;                   // 8-key groups a tile
+  static constexpr int NO = HDW / 8;                  // 8-column groups of a warp's O
+  static constexpr int QS = HD + 4;                   // raw Q row stride, floats
+  static constexpr int VS = HD + 4;                   // raw V row stride, floats
+  // bytes from a 1024-aligned base: Q hi, lo (QSPLIT); K hi (the copy
+  // lands there), lo; V^T hi, lo; raw Q (else); raw V
+  static constexpr int kQB = QSPLIT ? kBlkQ * HD * 4 : 0, kKB = BK * HD * 4, kVTB = HD * BK * 4;
+  static constexpr int kKHi = 2 * kQB, kKLo = kKHi + kKB;
+  static constexpr int kVTHi = kKLo + kKB, kVTLo = kVTHi + kVTB;
+  static constexpr int kQRaw = kVTLo + kVTB;
+  static constexpr int kVRaw = kQRaw + (QSPLIT ? 0 : kBlkQ * QS * 4);
+  static constexpr int kBytes = 1024 + kVRaw + BK * VS * 4;
+  static_assert(kBytes <= 232448, "a Hopper block's shared memory");
+  static_assert(NH == 1 || kWarps * 16 * BK * 4 <= kKB, "partial scores in K lo");
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const float* gmem, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// order this thread's shared-memory writes before the tensor cores' reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Where the 16-byte chunk i (4 columns) of row r lands: in rows of RS
+// floats (SW = false), or in the 128-byte-swizzle layout of a ROWS-row
+// tile (SW = true: slabs of 32 columns, ROWS x 128 bytes, chunk ch of
+// row r at chunk ch ^ (r % 8))
+template <bool SW, int ROWS, int RS>
+__device__ __forceinline__ int chunk_byte(int r, int i) {
+  if constexpr (SW)
+    return (i >> 3) * ROWS * 128 + r * 128 + (((i & 7) ^ (r & 7)) << 4);
+  else
+    return (r * RS + 4 * i) * 4;
+}
+
+// rows [r0, r0 + ROWS) of a (S, ., HD) fp32 tensor starting at `base`,
+// `stride` floats between positions, into shared memory by 16-byte
+// cp.async, chunk i by thread i % THREADS; rows at or past S are
+// zero-filled
+template <int HD, int ROWS, bool SW, int RS, int THREADS>
+__device__ __forceinline__ void load_rows_async(uint8_t* dst, const float* base,
+                                                long long stride, int r0, int S) {
+  constexpr int C = HD / 4;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ROWS * C; i += THREADS) {
+    const int r = i / C, c = i % C;
+    const bool in = r0 + r < S;
+    const float* src = in ? base + (r0 + r) * stride + 4 * c : base;
+    cp_async16(dst + chunk_byte<SW, ROWS, RS>(r, c), src, in);
+  }
+}
+
+// x as hi + lo: hi = tf32(x), lo = tf32(x - hi), each rounded to nearest
+// (ties away) with its 13 low bits zero
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(__fsub_rn(x, __uint_as_float(hi))));
+}
+
+// the chunks a thread copied with load_rows_async, times `mul` (1: as
+// they are) and split in place: hi where the copy landed, lo at the same
+// offset of `lo`
+template <int HD, int ROWS, bool SW, int RS, int THREADS>
+__device__ __forceinline__ void split_rows(uint8_t* hi, uint8_t* lo, float mul) {
+  constexpr int C = HD / 4;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ROWS * C; i += THREADS) {
+    const int off = chunk_byte<SW, ROWS, RS>(i / C, i % C);
+    const float4 x = *reinterpret_cast<const float4*>(hi + off);
+    uint4 h, l;
+    split_tf32(__fmul_rn(x.x, mul), h.x, l.x);
+    split_tf32(__fmul_rn(x.y, mul), h.y, l.y);
+    split_tf32(__fmul_rn(x.z, mul), h.z, l.z);
+    split_tf32(__fmul_rn(x.w, mul), h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+// Raw V rows (stride VS floats) -> V^T hi and lo, HD rows of BK keys in
+// the 128-byte-swizzle layout (slabs of 32 keys, HD x 128 bytes); within
+// each 8 keys key w goes to slot (w >> 1) + 4 (w & 1), the slot order of
+// P's A fragment.  Lane l takes key l (+ 32 a pass), warp w the column
+// groups w, w + WARPS, ...: a store writes 32 slots of one row.
+template <int HD, int BK, int VS, int WARPS>
+__device__ __forceinline__ void transpose_split(const float* raw, uint8_t* vt_hi,
+                                                uint8_t* vt_lo) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int pass = 0; pass < BK / 32; ++pass) {
+    const int j = 32 * pass + lane, w = j & 7;
+    const int slot = (j & 24) + (w >> 1) + 4 * (w & 1);     // within the slab
+#pragma unroll 2
+    for (int i = warp; i < HD / 4; i += WARPS) {
+      const float4 x = *reinterpret_cast<const float4*>(raw + j * VS + 4 * i);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 4 * i + e;
+        const int off =
+            pass * HD * 128 + n * 128 + (((slot >> 2) ^ (n & 7)) << 4) + (slot & 3) * 4;
+        uint32_t hi, lo;
+        split_tf32(xs[e], hi, lo);
+        *reinterpret_cast<uint32_t*>(vt_hi + off) = hi;
+        *reinterpret_cast<uint32_t*>(vt_lo + off) = lo;
+      }
+    }
+  }
+}
+
+#define ACC8(i)                                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ACC16 ACC8(0), ACC8(8)
+#define ACC32 ACC16, ACC8(16), ACC8(24)
+#define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+#define R16                                                                     \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define R32                                                                     \
+  R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+      "%30, %31"
+#define R64                                                                     \
+  R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "  \
+      "%60, %61, %62, %63"
+// wgmma with tf32 inputs and fp32 sums, d (64 x N) (+)= A (64 x 8) . B
+// (8 x N): B K-major in shared memory (desc), A likewise or in registers
+// (a warp's 16 rows as mma.m16n8k8's A: thread (g, c) = (lane / 4, lane %
+// 4) holds (g, c), (g + 8, c), (g, c + 4), (g + 8, c + 4)); scale_d 0
+// starts d from zero.  A warp's share of d: element 4 j + 2 i + e is row
+// 16 (warp % 4) + g + 8 i, column 8 j + 2 c + e.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" R16
+               "}, %16, %17, p, 1, 1;\n}\n"
+               : ACC16 : "l"(a), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" R16
+               "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+               : ACC16 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" R32
+               "}, %32, %33, p, 1, 1;\n}\n"
+               : ACC32 : "l"(a), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" R32
+               "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+               : ACC32 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                           int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" R64
+               "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+               : ACC64 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+#undef R64
+#undef R32
+#undef R16
+#undef ACC64
+#undef ACC32
+#undef ACC16
+#undef ACC8
+
+// a wgmma reads its register A fragments while it runs: keep them live
+// (unchanged) up to the wait that covers it
+template <int N>
+__device__ __forceinline__ void keep_regs(const uint32_t (&ah)[N][4],
+                                          const uint32_t (&al)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" ::"r"(ah[j][i]), "r"(al[j][i]) : "memory");
+}
+
+// k-steps of 8 whose products a fresh accumulator sums before one IEEE
+// add into S (kKG) or, for P V, a tile's: the MMA truncates its fp32 sum,
+// so a long chain of MMAs into one accumulator drifts (toward zero, by up
+// to an ulp of the running sum an MMA); a fresh sum of a few k-steps errs
+// only by ulps of itself, and the running sums round to nearest
+constexpr int kKG = 4;
+
+// A warp's share: query rows 16 r + g and + 8 of its warpgroup's (r =
+// warp % 4), head-dim columns [HDW h, HDW (h + 1)) (h = warp / 4 if NH =
+// 2, else 0).  Its S accumulator sc[n] holds keys 8 n + 2 c and + 1 of
+// the tile; its O accumulator acc[n] columns HDW h + 8 n + 2 c and + 1.
+template <int HD>
+__global__ void __launch_bounds__(Tf32Tile<HD>::kThreads, 1)
+flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int S, int H,
+                  int K, int BH, int causal, int window, float softcap, float scale) {
+  using L = Tf32Tile<HD>;
+  constexpr int BK = L::BK, NT = L::NT, NO = L::NO, QS = L::QS, VS = L::VS;
+  constexpr int HDW = L::HDW;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  // the swizzled tiles want 1024-byte alignment
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  uint8_t* sm = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  const uint32_t sm_s = static_cast<uint32_t>(__cvta_generic_to_shared(sm));
+  uint8_t* k_hi = sm + L::kKHi;
+  uint8_t* k_lo = sm + L::kKLo;
+  float* q_raw = reinterpret_cast<float*>(sm + L::kQRaw);
+  float* v_raw = reinterpret_cast<float*>(sm + L::kVRaw);
+  float* xch = reinterpret_cast<float*>(k_lo);          // NH = 2: partial scores
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wr = warp & 3;
+  const int wh = L::NH > 1 ? wg : 0;                    // head-dim half
+  const int g = lane >> 2, c = lane & 3;
+  const int n_qt = (S + L::kBlkQ - 1) / L::kBlkQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / BH) * L::kBlkQ;
+  const int bh = blockIdx.x % BH;
+  const int b = bh / H, h = bh % H;
+  const int kh = h / (H / K);
+  const long long q_stride = static_cast<long long>(H) * HD;
+  const long long kv_stride = static_cast<long long>(K) * HD;
+  const float* qb = q + (static_cast<long long>(b) * S * H + h) * HD;
+  const float* kb = k + (static_cast<long long>(b) * S * K + kh) * HD;
+  const float* vb = v + (static_cast<long long>(b) * S * K + kh) * HD;
+
+  // the key tiles that can hold a visible key for the block's queries,
+  // for this warpgroup's 64 rows and for this warp's 16
+  const int q_last = min(q0 + L::kBlkQ, S) - 1;
+  int t_hi = (S - 1) / BK;
+  if (causal) t_hi = min(t_hi, q_last / BK);
+  const int t_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int g0 = q0 + (L::NH > 1 ? 0 : 64 * wg);
+  int g_hi = (S - 1) / BK;
+  if (causal) g_hi = min(g_hi, min(g0 + 63, S - 1) / BK);
+  const int g_lo = window > 0 ? max(0, g0 - window + 1) / BK : 0;
+  const int w0 = g0 + 16 * wr;
+  const bool live = w0 < S;
+  int w_hi = (S - 1) / BK;
+  if (causal) w_hi = min(w_hi, min(w0 + 15, S - 1) / BK);
+  const int w_lo = window > 0 ? max(0, w0 - window + 1) / BK : 0;
+
+  if constexpr (L::QSPLIT)
+    load_rows_async<HD, L::kBlkQ, true, 0, L::kThreads>(sm, qb, q_stride, q0, S);
+  else
+    load_rows_async<HD, L::kBlkQ, false, QS, L::kThreads>(sm + L::kQRaw, qb, q_stride, q0, S);
+  cp_async_commit();
+  load_rows_async<HD, BK, true, 0, L::kThreads>(k_hi, kb, kv_stride, t_lo * BK, S);
+  cp_async_commit();
+  cp_async_wait<1>();
+  // q * scale rounded to fp32, each thread on the chunks it copied;
+  // QSPLIT: split into hi and lo
+  if constexpr (L::QSPLIT) {
+    split_rows<HD, L::kBlkQ, true, 0, L::kThreads>(sm, sm + L::kQB, scale);
+  } else {
+    for (int i = tid; i < L::kBlkQ * (HD / 4); i += L::kThreads) {
+      const int r = i / (HD / 4), col = (i % (HD / 4)) * 4;
+      float4* p4 = reinterpret_cast<float4*>(q_raw + r * QS + col);
+      float4 x = *p4;
+      x.x = __fmul_rn(x.x, scale);
+      x.y = __fmul_rn(x.y, scale);
+      x.z = __fmul_rn(x.z, scale);
+      x.w = __fmul_rn(x.w, scale);
+      *p4 = x;
+    }
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+  const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
+  // raw Q (NH = 2): A rows g, g + 8, columns d + c and d + c + 4
+  const float* qa = q_raw + (16 * wr + g) * QS + HDW * wh + c;
+  float* mine = xch + (warp * NT * 4) * 32 + lane;
+  const float* other = xch + (((warp + 4) % L::kWarps) * NT * 4) * 32 + lane;
+  const uint32_t kh_s = sm_s + L::kKHi, kl_s = sm_s + L::kKLo;
+  const uint32_t vh_s = sm_s + L::kVTHi + HDW * wh * 128, vl_s = vh_s + L::kVTB;
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int k0 = t * BK;
+    cp_async_wait<0>();
+    split_rows<HD, BK, true, 0, L::kThreads>(k_hi, k_lo, 1.f);
+    fence_proxy_async();        // the tensor cores read what threads wrote
+    __syncthreads();            // K(t) split; every warp is done with V(t - 1)
+    load_rows_async<HD, BK, false, VS, L::kThreads>(reinterpret_cast<uint8_t*>(v_raw), vb,
+                                                    kv_stride, k0, S);
+    cp_async_commit();
+    const bool act = live && t >= w_lo && t <= w_hi;
+    const bool g_act = g0 < S && t >= g_lo && t <= g_hi;  // uniform in a warpgroup
+    float sc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    if (g_act) {
+      // S = Q K^T over this warpgroup's columns: a fresh accumulator a
+      // group of kKG k-steps, then IEEE adds in order
+      constexpr int NG = HDW / 8 / kKG;
+      if constexpr (L::QSPLIT) {
+        // A (Q) and B (K) from shared memory: every group at once
+        float part[NG][NT * 4];
+        const uint32_t qh = sm_s + 64 * wg * 128, ql = qh + L::kQB;
+        wgmma_fence();
+#pragma unroll
+        for (int gi = 0; gi < NG; ++gi)
+#pragma unroll
+          for (int j = 0; j < kKG; ++j) {
+            const int kk = gi * kKG + j;
+            const uint32_t qo = (kk >> 2) * L::kBlkQ * 128 + (kk & 3) * 32;
+            const uint32_t ko = (kk >> 2) * BK * 128 + (kk & 3) * 32;
+            const uint64_t dqh = smem_desc(qh + qo, 16, 1024);
+            const uint64_t dkh = smem_desc(kh_s + ko, 16, 1024);
+            wgmma_tf32(part[gi], smem_desc(ql + qo, 16, 1024), dkh, j > 0);
+            wgmma_tf32(part[gi], dqh, smem_desc(kl_s + ko, 16, 1024), 1);
+            wgmma_tf32(part[gi], dqh, dkh, 1);
+          }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int gi = 0; gi < NG; ++gi) {
+          fence_regs(part[gi]);
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[n][e] = __fadd_rn(sc[n][e], part[gi][4 * n + e]);
+        }
+      } else {
+        // A (raw Q, split here) from registers: group gi + 1 is split
+        // while group gi's products run (two sets of fragments and of
+        // accumulators)
+        uint32_t ah[2][kKG][4], al[2][kKG][4];
+        float part[2][NT * 4];
+#pragma unroll
+        for (int gi = 0; gi < NG; ++gi) {
+          const int x = gi & 1;
+#pragma unroll
+          for (int j = 0; j < kKG; ++j) {
+            const int d = 8 * (gi * kKG + j);
+            split_tf32(qa[d], ah[x][j][0], al[x][j][0]);
+            split_tf32(qa[8 * QS + d], ah[x][j][1], al[x][j][1]);
+            split_tf32(qa[d + 4], ah[x][j][2], al[x][j][2]);
+            split_tf32(qa[8 * QS + d + 4], ah[x][j][3], al[x][j][3]);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < kKG; ++j) {
+            const int kk = HDW / 8 * wh + gi * kKG + j;
+            const uint32_t ko = (kk >> 2) * BK * 128 + (kk & 3) * 32;
+            const uint64_t dkh = smem_desc(kh_s + ko, 16, 1024);
+            wgmma_tf32(part[x], al[x][j], dkh, j > 0);
+            wgmma_tf32(part[x], ah[x][j], smem_desc(kl_s + ko, 16, 1024), 1);
+            wgmma_tf32(part[x], ah[x][j], dkh, 1);
+          }
+          wgmma_commit();
+          if (gi > 0) {             // group gi - 1 is done: into S, in order
+            wgmma_wait<1>();
+            keep_regs(ah[x ^ 1], al[x ^ 1]);
+            fence_regs(part[x ^ 1]);
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                sc[n][e] = __fadd_rn(sc[n][e], part[x ^ 1][4 * n + e]);
+          }
+        }
+        wgmma_wait<0>();
+        keep_regs(ah[(NG - 1) & 1], al[(NG - 1) & 1]);
+        fence_regs(part[(NG - 1) & 1]);
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[n][e] = __fadd_rn(sc[n][e], part[(NG - 1) & 1][4 * n + e]);
+      }
+    }
+    __syncthreads();            // every warp is done with K(t)
+    if (t < t_hi)
+      load_rows_async<HD, BK, true, 0, L::kThreads>(k_hi, kb, kv_stride, k0 + BK, S);
+    cp_async_commit();
+    if constexpr (L::NH > 1) {  // partial scores out, through K lo
+      if (act)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mine[(4 * n + e) * 32] = sc[n][e];
+      __syncthreads();
+    }
+    if (act) {
+      if constexpr (L::NH > 1)  // the two halves' sum, in the same order in both warps
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float y = other[(4 * n + e) * 32];
+            sc[n][e] = wh == 0 ? __fadd_rn(sc[n][e], y) : __fadd_rn(y, sc[n][e]);
+          }
+      if (softcap > 0.f)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[n][e] = __fmul_rn(softcap, tanhf(__fmul_rn(sc[n][e], inv_cap)));
+      if (k0 + BK > S || (causal && k0 + BK - 1 > w0) ||
+          (window > 0 && k0 <= w0 + 15 - window))
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = w0 + g + 8 * (e >> 1), kj = k0 + 8 * n + 2 * c + (e & 1);
+            const bool ok = kj < S && (!causal || kj <= qi) && (window == 0 || kj > qi - window);
+            sc[n][e] = ok ? sc[n][e] : kNegInf;
+          }
+      // the online softmax over each row's quad (fixed xor order)
+      float mx[2] = {kNegInf, kNegInf}, sum[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m_run[i], mx[i]);
+        alpha[i] = exp_sfu(m_run[i] - m_new);
+        m_run[i] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[n][e] = exp_sfu(sc[n][e] - m_run[e >> 1]);
+          sum[e >> 1] = __fadd_rn(sum[e >> 1], sc[n][e]);
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] = __fadd_rn(sum[i], __shfl_xor_sync(0xffffffffu, sum[i], 1));
+        sum[i] = __fadd_rn(sum[i], __shfl_xor_sync(0xffffffffu, sum[i], 2));
+        l_run[i] = __fadd_rn(__fmul_rn(alpha[i], l_run[i]), sum[i]);
+      }
+      if (alpha[0] != 1.f || alpha[1] != 1.f)  // x 1 is exact: skip it
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] = __fmul_rn(acc[n][e], alpha[e >> 1]);
+    } else {
+      // rows that see none of the tile: p = 0 in their warpgroup's P V
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    }
+    cp_async_wait<1>();
+    __syncthreads();            // V(t) landed, every thread's copies
+    transpose_split<HD, BK, VS, L::kWarps>(v_raw, sm + L::kVTHi, sm + L::kVTLo);
+    fence_proxy_async();
+    __syncthreads();            // V^T(t) split
+    if (g_act) {
+      // O += P V over this warpgroup's columns: P (A) from the S
+      // registers (a k-step's keys in the slot order (0, 2, 4, 6, 1, 3,
+      // 5, 7), so P's A fragment is the accumulator's registers), V^T (B)
+      // from shared memory; a fresh accumulator for the tile, then IEEE
+      // adds into O
+      uint32_t ph[NT][4], pl[NT][4];
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        split_tf32(sc[kk][0], ph[kk][0], pl[kk][0]);
+        split_tf32(sc[kk][2], ph[kk][1], pl[kk][1]);
+        split_tf32(sc[kk][1], ph[kk][2], pl[kk][2]);
+        split_tf32(sc[kk][3], ph[kk][3], pl[kk][3]);
+      }
+      float part[NO * 4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        const uint32_t off = (kk >> 2) * HD * 128 + (kk & 3) * 32;
+        const uint64_t dh = smem_desc(vh_s + off, 16, 1024);
+        wgmma_tf32(part, pl[kk], dh, kk > 0);
+        wgmma_tf32(part, ph[kk], smem_desc(vl_s + off, 16, 1024), 1);
+        wgmma_tf32(part, ph[kk], dh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(part);
+      if (act)
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] = __fadd_rn(acc[n][e], part[4 * n + e]);
+    }
+  }
+  cp_async_wait<0>();
+
+  if (live) {
+    float* ob = o + (static_cast<long long>(b) * S * H + h) * HD + HDW * wh;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = w0 + g + 8 * i;
+      if (r >= S) continue;
+      const float den = fmaxf(l_run[i], 1e-30f);
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(ob + r * q_stride + 8 * n + 2 * c) =
+            make_float2(__fdiv_rn(acc[n][2 * i], den), __fdiv_rn(acc[n][2 * i + 1], den));
+    }
+  }
+}
+
+template <int HD>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, int B, int S,
+                int H, int K, int causal, int window, float softcap, float scale,
+                cudaStream_t s) {
+  using L = Tf32Tile<HD>;
+  auto kernel = flash_tf32_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qt = (S + L::kBlkQ - 1) / L::kBlkQ;
+  const long long blocks = static_cast<long long>(B) * H * n_qt;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), L::kThreads, L::kBytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, K, B * H, causal,
+      window, softcap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // cuTensorMapEncodeTiled (libcuda's), looked up through the runtime so
 // that nothing links libcuda
 PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
@@ -798,15 +1167,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// fp32: q_blk = kv_blk = 64; bf16: q_blk = 64 kWG, kv_blk = bf16_kv_tile
+// fp32: Tf32Tile's kBlkQ and BK; bf16: q_blk = 64 kWG, kv_blk =
+// bf16_kv_tile
 template <int HD>
 int launch_dtype(int dtype, int q_blk, int kv_blk, const void* q,
                  const void* k, const void* v, void* o, int B, int S, int H,
                  int K, int causal, int window, float softcap, float scale,
                  cudaStream_t s) {
-  if (dtype == 0 && q_blk == kBlkQ && kv_blk == kBlkK)
-    return launch<float, HD, kBlkQ, kBlkK>(q, k, v, o, B, S, H, K, causal,
-                                           window, softcap, scale, s);
+  if (dtype == 0 && q_blk == Tf32Tile<HD>::kBlkQ && kv_blk == Tf32Tile<HD>::BK)
+    return launch_tf32<HD>(q, k, v, o, B, S, H, K, causal, window, softcap,
+                           scale, s);
   if (dtype == 1 && q_blk == 64 * kWG && kv_blk == bf16_kv_tile<HD>())
     return launch_bf16<HD>(q, k, v, o, B, S, H, K, causal, window, softcap,
                            scale, s);

@@ -8,15 +8,19 @@ one to ``repro_torch.kernels.LAUNCHES["flash_attention"]``.
 
 ``q_blk`` and ``kv_blk`` are the kernel's query and key tile sizes, one
 pair per (dtype, head dim), in ``TILES``; None (the default) takes that
-pair, and any other pair raises.  fp32 runs on CUDA cores in 64 x 64
-tiles (the TPU kernel's defaults, 256 and 512, do not fit in a Hopper
-block's shared memory at fp32); bf16 runs on the tensor cores (wgmma,
-K/V by TMA) with 128 queries a block (64 a warpgroup) and 64 keys a
-tile, 128 at hd 64.  ``smem_bytes`` is the shared memory a block takes,
-as the launcher computes it.  The plain version does not tile, so on the
-CPU the tiles are not read.  There is no backward, as the TPU kernel has
-none, and no entry point of the port calls it, as none of the JAX
-package calls ``flash_attention``: the models attend with
+pair, and any other pair raises.  fp32 runs on the tensor cores in
+3xTF32 (wgmma; each operand split into two TF32 terms, three
+products), two warpgroups a block: 128 queries (64 each) and 64 keys a
+tile at hd 64, 32 keys at hd 128; at hd 256 64 queries (each warpgroup
+on half the head dim) and 32 keys; K/V by cp.async, split once a tile
+in shared memory (the TPU kernel's defaults, 256 and 512, do not fit in
+a Hopper block's shared memory at fp32).  bf16 runs on the tensor cores
+(wgmma, K/V by TMA) with 128 queries a block (64 a warpgroup) and 64
+keys a tile, 128 at hd 64.  ``smem_bytes`` is the shared memory a block
+takes, as the launcher computes it.  The plain version does not tile, so
+on the CPU the tiles are not read.  There is no backward, as the TPU
+kernel has none, and no entry point of the port calls it, as none of the
+JAX package calls ``flash_attention``: the models attend with
 ``layers._sdpa_seq``.
 """
 from __future__ import annotations
@@ -34,8 +38,12 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 LIB_NAME = "flash_attention"
 HEAD_DIMS = (64, 128, 256)
 # (q_blk, kv_blk) of each dtype's kernel at each head dim
-TILES = {torch.float32: {hd: (64, 64) for hd in HEAD_DIMS},
+TILES = {torch.float32: {64: (128, 64), 128: (128, 32), 256: (64, 32)},
          torch.bfloat16: {64: (128, 128), 128: (128, 64), 256: (128, 64)}}
+# fp32: warpgroups that share the block's query rows, each on hd / n of
+# the head dim (hd 256: Q raw, split at each use); below it each takes 64
+# rows of 128 over the whole head dim, Q split once
+FP32_HEAD_SPLIT = {64: 1, 128: 1, 256: 2}
 DEFAULT_Q_BLK = None               # TILES' pair for the inputs
 DEFAULT_KV_BLK = None
 SMEM_LIMIT = 232448                # shared memory a Hopper block can use
@@ -44,13 +52,14 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def smem_bytes(dtype, hd: int, q_blk: int, kv_blk: int) -> int:
     """Dynamic shared memory of one block, as ``flash_attention.cu``
-    sizes it: fp32, the scaled Q, one K-or-V tile and the probability
-    tile in rows padded by 4 floats, and the row max, sum and alpha;
-    bf16, Q and two stages of K and V tiles, three 8-byte mbarriers, two
-    counts and 1024 bytes to align the tiles."""
+    sizes it: fp32, Q split into hi and lo (hd 64, 128; raw in rows
+    padded by 4 floats at hd 256), a K tile and V^T split likewise, raw V
+    in rows padded by 4 floats and 1024 bytes to align the tiles; bf16, Q
+    and two stages of K and V tiles, three 8-byte mbarriers, two counts
+    and 1024 bytes to align the tiles."""
     if dtype == torch.float32:
-        return 4 * (q_blk * (hd + 4) + kv_blk * (hd + 4) + q_blk * (kv_blk + 4)
-                    + 3 * q_blk)
+        q_bytes = 2 * q_blk * hd if FP32_HEAD_SPLIT[hd] == 1 else q_blk * (hd + 4)
+        return 4 * (q_bytes + 4 * kv_blk * hd + kv_blk * (hd + 4)) + 1024
     return 2 * hd * (q_blk + 2 * 2 * kv_blk) + 32 + 1024
 
 

@@ -14,8 +14,13 @@ below repeats its arithmetic in plain PyTorch (exact bf16 products
 summed in fp32, the scale applied to the fp32 score, an online softmax
 over the kernel's key tiles, P split into two bf16 terms) and holds it
 against the Pallas kernel in interpret mode within the card's bf16
-bound, 2e-5 + 2^-7 max(|y|, |y_ref|), before the card does.  (The
-kernel's exp is the SFU's 2^x, within ~1e-6 of exp where p matters.)  The CUDA kernel against the
+bound, 2e-5 + 2^-7 max(|y|, |y_ref|), before the card does.  The fp32
+CUDA kernel computes on the tensor cores too, in 3xTF32;
+``_fp32_kernel_math`` repeats its arithmetic (the TF32 split on the
+fp32 bits, three products a k-step of 8, the online softmax over its
+key tiles) and holds it against the Pallas kernel within the fp32
+bound, 2e-5, which one TF32 product misses.  (Both kernels' exp is the
+SFU's 2^x, within ~1e-6 of exp where p matters.)  The CUDA kernel against the
 plain version is the ``cuda``-marked test, which skips without a card
 (and this module imports JAX, which the card's machine lacks);
 ``chip_smoke.py`` makes the same comparisons there, over every build
@@ -224,16 +229,138 @@ def test_bf16_kernel_math_needs_the_split_p(hd):
     assert (once - want).abs().max().item() > TOL["float32"]
 
 
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` on the fp32 bits: add half a unit of the 13
+    dropped bits to the magnitude, then clear them (round to nearest,
+    ties away from zero)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mma_steps(a, b, acc, three=True, group=4):
+    """acc + a @ b as the fp32 kernel's MMAs run it: k-steps of 8, each
+    operand split into hi = tf32(x) and lo = tf32(x - hi), lo.hi, hi.lo,
+    then hi.hi (hi.hi alone: one TF32 product) summed from zero over a
+    group of k-steps (four in Q K^T: ``kKG`` in the kernel), and each
+    group's sum added to the running fp32 sum."""
+    for d0 in range(0, a.shape[-1], 8 * group):
+        part = 0.0
+        for d in range(d0, d0 + 8 * group, 8):
+            a8, b8 = a[..., d:d + 8], b[..., d:d + 8, :]
+            ah, bh = _tf32(a8), _tf32(b8)
+            if three:
+                part = part + _tf32(a8 - ah) @ bh
+                part = part + ah @ _tf32(b8 - bh)
+            part = part + ah @ bh
+        acc = acc + part
+    return acc
+
+
+def _fp32_kernel_math(q, k, v, *, causal=True, window=0, softcap=0.0,
+                      three=True):
+    """The fp32 kernel's arithmetic in plain PyTorch: q * scale rounded
+    to fp32, both products in 3xTF32 by k-steps of 8 (the order of the 8
+    keys or columns inside a step is the MMA's, and its truncating sum is
+    not repeated), at hd 256 the scores as the sum of two halves of the
+    head dim, s / softcap as s times 1 / softcap, the online softmax over
+    the kernel's key tiles, each tile's P V summed from zero before it is
+    added to O.  q (B, S, H, hd), k/v (B, S, K, hd) fp32."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    bk = ops.TILES[torch.float32][hd][1]
+    qs = q.permute(0, 2, 1, 3) * hd ** -0.5                 # (B, H, S, hd)
+    kf = k.permute(0, 2, 1, 3).repeat_interleave(H // K, dim=1)
+    vf = v.permute(0, 2, 1, 3).repeat_interleave(H // K, dim=1)
+    kt = kf.transpose(-1, -2)
+    w = hd // ops.FP32_HEAD_SPLIT[hd]                       # columns a warpgroup
+    s = None
+    for d in range(0, hd, w):
+        half = _mma_steps(qs[..., d:d + w], kt[..., d:d + w, :],
+                          torch.zeros((B, H, S, S)), three)
+        s = half if s is None else s + half
+    if softcap > 0:
+        inv_cap = torch.tensor(1.0 / softcap, dtype=torch.float32)
+        s = softcap * torch.tanh(s * inv_cap)
+    i = torch.arange(S)[:, None]
+    j = torch.arange(S)[None, :]
+    ok = j < S
+    if causal:
+        ok = ok & (j <= i)
+    if window > 0:
+        ok = ok & (j > i - window)
+    s = torch.where(ok, s, -2.0e38)
+    m = torch.full((B, H, S, 1), -2.0e38)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, hd))
+    for k0 in range(0, S, bk):
+        st = s[..., k0:k0 + bk]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = _mma_steps(p, vf[:, :, k0:k0 + bk], alpha * acc, three, group=bk // 8)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).permute(0, 2, 1, 3)
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 - 2.0 ** -23, 0.0])
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9, -(1.0 + 2.0 ** -10),
+                         1.0, 0.0])
+    assert torch.equal(_tf32(x), want)
+    r = torch.from_numpy(np.random.RandomState(4).randn(4096).astype(np.float32))
+    hi = _tf32(r)
+    lo = _tf32(r - hi)
+    assert ((hi.view(torch.int32) | lo.view(torch.int32)) & 0x1FFF).eq(0).all()
+    assert ((hi + lo - r).abs() <= 2.0 ** -21 * r.abs()).all()
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("pair", [0, 1, 2])
+def test_fp32_kernel_math_matches_pallas_interpret(hd, pair):
+    """Two of BF16_OPTIONS a case.  At S 192 the kernel's key tiles are
+    three (64 keys, hd 64) or six (32); q is scaled so the scores reach
+    the softcap."""
+    S = 192
+    for kw in BF16_OPTIONS[2 * pair:2 * pair + 2]:
+        arrays = _qkv(1, S, 4, 2, hd, seed=hd + len(kw))
+        arrays[0] = arrays[0] * 2.0
+        want = np.asarray(flash_attention(*map(jnp.asarray, arrays), q_blk=64,
+                                          kv_blk=64, interpret=True, **kw))
+        got = _fp32_kernel_math(*_torch(arrays), **kw).numpy()
+        err = np.abs(got - want).max()
+        assert err <= TOL["float32"], (kw, err)
+
+
+@pytest.mark.parametrize("hd", [128, 256])
+def test_fp32_kernel_math_needs_three_tf32_products(hd):
+    """3xTF32 holds the fp32 bound (2e-5) against the plain version; one
+    TF32 product (operands rounded once to TF32) does not, which is why
+    the kernel multiplies three times."""
+    q, k, v = _torch(_qkv(1, 256, 4, 2, hd, seed=22))
+    want = attention_ref(q, k, v, window=200)
+    three = _fp32_kernel_math(q, k, v, window=200)
+    once = _fp32_kernel_math(q, k, v, window=200, three=False)
+    assert (three - want).abs().max().item() <= TOL["float32"]
+    assert (once - want).abs().max().item() > TOL["float32"]
+
+
 def test_tiles_fit_shared_memory_and_others_raise():
     """Each (dtype, hd) tile pair fits a Hopper block's 232,448 bytes of
-    shared memory as the launcher sizes it; bf16 takes 128 queries (two
-    warpgroups of 64); any other pair raises before a launch."""
+    shared memory as the launcher sizes it; fp32 holds the hi and lo
+    parts of Q (raw at hd 256), of a K tile and of V^T, and raw V
+    (231,936 bytes at hd 256, where a 64-key tile does not fit); bf16
+    takes 128 queries (two warpgroups of 64); any other pair raises
+    before a launch."""
     assert ops.SMEM_LIMIT == 232448
     for dtype, by_hd in ops.TILES.items():
         assert set(by_hd) == set(ops.HEAD_DIMS)
         for hd, (q_blk, kv_blk) in by_hd.items():
             assert ops.smem_bytes(dtype, hd, q_blk, kv_blk) <= ops.SMEM_LIMIT
-    assert ops.smem_bytes(torch.float32, 256, 64, 64) == 151296
+    assert ops.smem_bytes(torch.float32, 256, 64, 32) == 231936
+    assert ops.smem_bytes(torch.float32, 128, 128, 32) == 214528
+    assert ops.smem_bytes(torch.float32, 256, 64, 64) > ops.SMEM_LIMIT
     assert ops.smem_bytes(torch.bfloat16, 256, 128, 64) == 196608 + 32 + 1024
     assert {t[0] for t in ops.TILES[torch.bfloat16].values()} == {128}
     assert ops.smem_bytes(torch.bfloat16, 256, 128, 128) > ops.SMEM_LIMIT
