@@ -10,8 +10,9 @@ LAMB on the multi-tensor engine, with SNGM and LARS on the per-leaf
 path, and with three gradient-transform chains compiled onto the engine
 (a clip before the chain, mid-chain, and after the schedule, the last
 through ``fused_update``'s deferred apply), every optimizer pass a
-hand-written CUDA kernel; and the RMSNorm and flash attention op entry
-points, each a hand-written CUDA kernel.  Holds every kernel (11 rows:
+hand-written CUDA kernel; a save and resume of SNGM and LAMB training
+on the engine; and the RMSNorm and flash attention op entry points,
+each a hand-written CUDA kernel.  Holds every kernel (11 rows:
 the deferred apply has its own) against its plain PyTorch version.
 
     python3 chip_smoke.py
@@ -129,7 +130,22 @@ Phases, each raising on failure:
      grid's bound for clipped chains (fp32 rtol 5e-4 / atol 1e-6, bf16
      rtol 5e-2 / atol 1e-2), and whether bitwise (depth cut to 2 layers,
      as in phase 10);
- 18. one JSON line of kernel timings against their bounds (11 rows;
+ 18. checkpoints and resume at full width through the launcher's own
+     functions (``plan_run``, ``build``, ``Saves``, ``train``, ``resume``):
+     SNGM on the engine at all 18 layers and LAMB on the engine at 2
+     (depth cut further only if the disk cannot hold the checkpoint about
+     twice, logged), phase 9's batch: steps 0-1 with ``--save-every 2
+     --async-save`` (the async save's blocking copy timed at the step
+     boundary beside the step time, its commit, and a sync save of the
+     same state), then a fresh run from the saved ``train_meta.json`` with
+     ``--resume`` (load timed): every restored byte bitwise the live
+     state's at step 2, the spec and horizon adopted; steps 2-3 from the
+     restored state (1 ``chunk_sumsq`` + 1 ``fused_update`` a step; LAMB:
+     1 ``adam_update`` + 1 ``scale_apply``; counts set to 0 just before,
+     read just after) within twice the difference between two runs of
+     steps 2-3 from the live state (0 if they repeat); the files in a
+     scratch dir under ``build/``, removed at the end;
+ 19. one JSON line of kernel timings against their bounds (11 rows;
      flash attention's row is the bf16 gemma-2b prefill), then the JSON
      result line.
 
@@ -140,18 +156,21 @@ device spin before the start event, so the host's enqueue (logged as
     python3 chip_smoke.py --ops-only    # phases 1 and 11-14: the two ops
     python3 chip_smoke.py --paged-only  # phases 1, 2 and 5: the paged kernel
     python3 chip_smoke.py --chains-only # phases 1 and 15-17: the chains
+    python3 chip_smoke.py --ckpt-only   # phases 1 and 18: checkpoints, resume
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -1702,6 +1721,217 @@ def phase_chain_vs_interp(torch, cfg, n_layers=2):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: checkpoints and resume at full width
+# ---------------------------------------------------------------------------
+
+# (what, launcher flags, depth (None: the full 18 layers), kernel launches
+# per resumed step)
+CKPT_RUNS = {
+    "sngm": ("SNGM on the engine", ["--optimizer", "sngm", "--fused", "multi_tensor"],
+             None, {"chunk_sumsq": 1, "fused_update": 1}),
+    "lamb": ("LAMB on the engine (lr 0.01)",
+             ["--optimizer", "lamb", "--fused", "multi_tensor", "--lr", "0.01"],
+             2, {"adam_update": 1, "scale_apply": 1}),
+}
+# the resumed steps against the live state's: within this many times the
+# difference between two runs from the live state themselves (0 if the
+# steps repeat), since each pair of runs is a fresh draw of the token
+# gather backward's atomic sum order
+RESUME_SLACK = 2.0
+
+
+@contextlib.contextmanager
+def depth_cut(train_mod, n_layers):
+    """The launcher's config at ``n_layers`` layers (widths unchanged)."""
+    get = train_mod.get_config
+    if n_layers is not None:
+        train_mod.get_config = lambda name: dataclasses.replace(
+            get(name), n_layers=n_layers)
+    try:
+        yield
+    finally:
+        train_mod.get_config = get
+
+
+def state_buffers(state):
+    """A resident state's flat buffers: params, then its f32 slots."""
+    o = state.opt_state
+    return list(o.p_flats) + list(o.u_flats) + list(o.m_flats) + list(o.v_flats)
+
+
+def max_abs_diff(torch, xs, ys, chunk=1 << 26):
+    """max |x - y| over pairs of flat buffers, a chunk at a time."""
+    worst = 0.0
+    for x, y in zip(xs, ys):
+        for i in range(0, x.numel(), chunk):
+            d = (x[i:i + chunk].float() - y[i:i + chunk].float()).abs().max()
+            worst = max(worst, float(d))
+    return worst
+
+
+def ckpt_layers(name, root, need_x=2.1):
+    """The depth for ``name``'s round trip: its own, or the most layers
+    whose checkpoint fits ``need_x`` times in the free bytes of ``root``
+    (the family's save and the timed sync save sit there at once)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import count, model_defs
+    own = CKPT_RUNS[name][2]
+    cfg = get_config(ARCH)
+    slots = {"sngm": 1, "lamb": 2}[name]     # momentum / m and v, f32
+
+    def nbytes(n):                 # fp32 params and their f32 slots
+        return count(model_defs(dataclasses.replace(cfg, n_layers=n))) * 4 * (1 + slots)
+    free = shutil.disk_usage(root).free
+    n = own or cfg.n_layers
+    while n > 1 and need_x * nbytes(n) > free:
+        n -= 1
+    cut = "" if n == (own or cfg.n_layers) else \
+        f" (DEPTH CUT from {own or cfg.n_layers} layers for the disk)"
+    log(f"checkpoint dir {root}: {free:,} bytes free; {name} at {n} of "
+        f"{cfg.n_layers} layers: {nbytes(n):,} bytes a checkpoint{cut}")
+    return None if n == cfg.n_layers else n
+
+
+def phase_ckpt(torch, kernels, train_mod, name, root):
+    """Phase 18 for one optimizer, through the launcher's own functions:
+    steps 0-1 with ``--save-every 2 --async-save`` (the async save's
+    blocking copy timed at the step boundary, its commit, then a sync save
+    of the same state, timed); a fresh run from the saved train_meta.json
+    with ``--resume`` (load timed): every buffer bitwise the live state's
+    at step 2, the spec and horizon adopted; steps 2-3 from the restored
+    state (launch counts set to 0 just before and read just after) held
+    against steps 2-3 from the live state, run twice."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.checkpoint.io import _flatten
+    what, flags, _, per_step = CKPT_RUNS[name]
+    n_layers = ckpt_layers(name, root)
+    ck = root / name
+    common = ["--arch", ARCH, "--batch", "8", "--seq", "512", "--n-micro", "2",
+              "--weight-decay", "1e-4", "--log-every", "1", "--device", "cuda",
+              "--seed", "0", *flags]
+    with depth_cut(train_mod, n_layers):
+        args = train_mod.parse_args(common + [
+            "--steps", "2", "--total-steps", "4", "--ckpt", str(ck),
+            "--save-every", "2", "--async-save"])
+        plan = train_mod.plan_run(args)
+        run = train_mod.build(args, plan.spec)
+    ck_bytes = sum(v.numel() * v.element_size() if torch.is_tensor(v) else 4
+                   for v in _flatten({"params": run.state.params_view,
+                                      "opt": run.state.opt_state}).values())
+    saves = train_mod.Saves(args, plan)
+    timing = {}
+    save_step = saves.save_step
+
+    def timed_save(step_no, st):
+        torch.cuda.synchronize()       # the step's kernels out of the window
+        timing["t0"] = time.perf_counter()
+        save_step(step_no, st)
+        timing["block"] = time.perf_counter() - timing["t0"]
+    saves.save_step = timed_save
+    state, mem = train_mod.train(args, run, 0, saves.step_hook)
+    saves.finish(state, 0)             # drains the background commit
+    async_s = time.perf_counter() - timing["t0"]
+    tree = {"params": state.params_view, "opt": state.opt_state}
+    step_s = mem.steps[-1][1]["step_time_s"]      # step 1: step 0 is first use
+    t0 = time.perf_counter()
+    save_checkpoint(str(root / f"{name}_sync"), tree, step=2)
+    sync_s = time.perf_counter() - t0
+    shutil.rmtree(root / f"{name}_sync")
+    gb = ck_bytes / 1e9
+    log(f"{what}, {run.cfg.n_layers} layers: checkpoint {ck_bytes:,} bytes "
+        f"(params + f32 slots, the pytree form); async save: the step "
+        f"boundary blocked {timing['block']:.3f} s (a pageable device-to-host "
+        f"copy, {gb / timing['block']:.2f} GB/s) beside the {step_s:.3f} s "
+        f"step before it, committed {async_s:.2f} s after it began "
+        f"({gb / async_s:.2f} GB/s); sync save {sync_s:.2f} s "
+        f"({gb / sync_s:.2f} GB/s)")
+    live = [b.to("cpu", copy=True) for b in state_buffers(state)]   # step 2
+
+    with depth_cut(train_mod, n_layers):
+        args_b = train_mod.parse_args(common + ["--steps", "4", "--ckpt", str(ck),
+                                                "--resume"])
+        plan_b = train_mod.plan_run(args_b)
+        run_b = train_mod.build(args_b, plan_b.spec)
+    if (plan_b.horizon, plan_b.spec) != (4, plan.spec):
+        raise AssertionError(f"resume adopted {plan_b.horizon} {plan_b.spec}, "
+                             f"saved 4 {plan.spec}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = train_mod.resume(run_b, plan_b.resume_path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if start != 2 or run_b.state.step != 2 or not plan_b.resume_path.endswith(
+            "step_00000002"):
+        raise AssertionError(f"resumed {plan_b.resume_path} at {start}")
+    same = [same_bits(torch, a, b) for a, b in
+            zip(state_buffers(state), state_buffers(run_b.state))]
+    if not all(same):
+        raise AssertionError(f"{what}: restored buffers differ from the live "
+                             f"state at step 2: {same}")
+    log(f"loaded {load_s:.2f} s ({gb / load_s:.2f} GB/s; the file was written "
+        f"moments before, the page cache not dropped); every restored byte "
+        f"(params, f32 slots, padding) and the step equal the live state's at "
+        f"step 2")
+
+    kernels.reset_launches()
+    state_b, mem_b = train_mod.train(args_b, run_b, start)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {k: per_step.get(k, 0) * 2 for k in OPT_KERNELS}
+    if {k: launches[k] for k in OPT_KERNELS} != want:
+        raise AssertionError(f"{what}: resumed launches {launches}, want {want}")
+    resumed = state_buffers(state_b)   # B's buffers, kept for the diffs
+    del run_b, state_b
+
+    # steps 2-3 from the live state, twice, with at most two states and
+    # the activations on the card at once (80 GB)
+    recs = []
+    for i in range(2):
+        for b, h in zip(state_buffers(state), live):
+            b.copy_(h)
+        run.state = state
+        _, m = train_mod.train(args_b, run, 2)
+        recs.append([r for _, r in m.steps])
+        if i == 0:
+            d_res = max_abs_diff(torch, state_buffers(state), resumed)
+            del resumed
+            torch.cuda.empty_cache()
+            buf1 = [b.clone() for b in state_buffers(state)]
+        else:
+            d_live = max_abs_diff(torch, state_buffers(state), buf1)
+    rec1, rec2 = recs
+    recb = [r for _, r in mem_b.steps]
+    keys = ("loss", "grad_norm", "update_norm")
+    s_live = max(abs(a[k] - b[k]) for a, b in zip(rec1, rec2) for k in keys)
+    s_res = max(abs(a[k] - b[k]) for a, b in zip(rec1, recb) for k in keys)
+    log(f"steps 2-3: live run 1 losses {fmt_all(rec1, 'loss', '.6f')}, live run 2 "
+        f"{fmt_all(rec2, 'loss', '.6f')}, resumed {fmt_all(recb, 'loss', '.6f')}; "
+        f"max |state| difference live-live {d_live:.3e}, resumed-live "
+        f"{d_res:.3e}; max stats difference live-live {s_live:.3e}, "
+        f"resumed-live {s_res:.3e}; resumed launches: " + ", ".join(
+            f"{k} {launches[k]}" for k in per_step))
+    if d_res > RESUME_SLACK * d_live or s_res > RESUME_SLACK * s_live:
+        raise AssertionError(f"{what}: the resumed steps differ from the live "
+                             f"ones by {d_res} (state) / {s_res} (stats), two "
+                             f"live runs by {d_live} / {s_live}")
+    del run, state, live, buf1
+    torch.cuda.empty_cache()
+    shutil.rmtree(ck)
+
+
+def ckpt_phases(torch, kernels, train_mod):
+    """Phase 18: both round trips in a git-ignored scratch dir under
+    ``build/``, removed at the end."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="ckpt_smoke_", dir=ROOT / "build"))
+    try:
+        for name in CKPT_RUNS:
+            phase_ckpt(torch, kernels, train_mod, name, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # phases 11-14: RMSNorm and flash attention, the two op entry points
 # ---------------------------------------------------------------------------
 
@@ -2098,6 +2328,9 @@ def main(argv=None) -> int:
                     help="phases 1 and 15-17 only (gradient-transform chains "
                          "on the engine, fused_update's deferred apply); "
                          "prints its row")
+    ap.add_argument("--ckpt-only", action="store_true",
+                    help="phases 1 and 18 only (checkpoints and resume at "
+                         "full width); prints no kernel rows")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
@@ -2131,7 +2364,7 @@ def main(argv=None) -> int:
     lars = SimpleNamespace(ops=lars_ops, ref=lars_ref)
     t_start = time.perf_counter()
     libs = {"paged_attention": [ops.SOURCE]}
-    if args.chains_only:
+    if args.chains_only or args.ckpt_only:
         libs[mt_ops.LIB_NAME] = [mt_ops.SOURCE]
     elif not args.paged_only:
         libs.update({mt_ops.LIB_NAME: [mt_ops.SOURCE],
@@ -2148,6 +2381,8 @@ def main(argv=None) -> int:
     elif args.chains_only:
         rows.update(chain_phases(torch, kernels, mt_ops, mt_ref, train_mod,
                                  get_config(ARCH)))
+    elif args.ckpt_only:
+        ckpt_phases(torch, kernels, train_mod)
     elif not args.ops_only:
         err = phase_kernel(torch, ops, ref)
         rt = make_runtime("cuda")
@@ -2189,9 +2424,10 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         phase_fused_vs_plain(torch, cfg)
         rows.update(chain_phases(torch, kernels, mt_ops, mt_ref, train_mod, cfg))
+        ckpt_phases(torch, kernels, train_mod)
         t_train = time.perf_counter()
 
-    if not (args.paged_only or args.chains_only):
+    if not (args.paged_only or args.chains_only or args.ckpt_only):
         phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
         cases = ops_cases(torch)
         outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)

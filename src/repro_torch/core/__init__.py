@@ -1,8 +1,11 @@
-from repro_torch.core.optim import (LambState, OptState, Optimizer,
-                                    TrainState, lamb, lars, make_optimizer,
-                                    msgd, optimizer_names, sngd, sngm)
+from repro_torch.core.optim import (LambState, OptimizerSpec, OptState,
+                                    Optimizer, TrainState, builder_accepts,
+                                    from_pytree, lamb, lars, make_optimizer,
+                                    msgd, optimizer_names, sngd, sngm,
+                                    to_pytree)
 from repro_torch.core.schedules import make_schedule
 
-__all__ = ["LambState", "OptState", "Optimizer", "TrainState", "lamb", "lars",
+__all__ = ["LambState", "OptimizerSpec", "OptState", "Optimizer",
+           "TrainState", "builder_accepts", "from_pytree", "lamb", "lars",
            "make_optimizer", "msgd", "optimizer_names", "sngd", "sngm",
-           "make_schedule"]
+           "to_pytree", "make_schedule"]

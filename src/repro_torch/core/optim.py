@@ -45,22 +45,28 @@ resident path ``params`` is None and the buffers are the single
 parameter copy.  A stepped resident state's buffers hold the new values
 (the kernels update them in place), and so do a per-leaf step's
 parameter and momentum tensors: only the returned state may be used.
+``to_pytree`` / ``from_pytree`` convert between every state form and
+the JAX package's pytree forms (``OptState``, ``ChainOptState``), which
+checkpoints hold; ``OptimizerSpec`` is an optimizer's JSON identity,
+saved beside them in ``train_meta.json``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+import inspect
+import json
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core import transform as T
 from repro_torch.core.multi_tensor import (
-    NOT_PORTED, FlatGrads, FlatOptState, _clip_flats_round, _clip_tree_round,
-    bias_corrections, clip_leaf, clip_scale, flat_global_norm, flatten,
-    global_norm, init_flat_adam_state, init_flat_state, leaf_order,
-    leaf_sumsq, multi_tensor_lamb_step_flat, multi_tensor_step,
-    multi_tensor_step_flat, require_matching_layout, resident_lamb_step,
-    resident_step, trust_ratio)
+    LAMB_FORM, NOT_PORTED, FlatGrads, FlatOptState, _clip_flats_round,
+    _clip_tree_round, bias_corrections, build_layout, clip_leaf, clip_scale,
+    flat_global_norm, flatten, global_norm, init_flat_adam_state,
+    init_flat_state, leaf_order, leaf_sumsq, multi_tensor_lamb_step_flat,
+    multi_tensor_step, multi_tensor_step_flat, require_matching_layout,
+    resident_lamb_step, resident_step, trust_ratio)
 from repro_torch.core.schedules import Schedule, make_schedule
 from repro_torch.kernels.multi_tensor.ref import weak_scalar
 
@@ -75,10 +81,14 @@ class OptState(NamedTuple):
 class LambState(NamedTuple):
     """LAMB's dict-form state: the step and both f32 Adam moments (the JAX
     interpreter's ``ChainOptState`` holds the same in ``inner[0]``, and
-    the step again as the schedule's count in ``inner[-1]``)."""
+    the step again as the schedule's count in ``inner[-1]``).  ``form``
+    is the resident state's ``("lamb", n_prefix, n_mid)``: where the
+    Adam stage sits in the chain, which ``to_pytree`` needs to rebuild
+    the interpreter's state."""
     step: int
     m: Tree
     v: Tree
+    form: Any = LAMB_FORM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +150,160 @@ def _zeros_f32(params: Tree) -> Tree:
 def _init(params: Tree) -> OptState:
     # momentum is always fp32, independent of parameter storage dtype
     return OptState(step=0, momentum=_zeros_f32(params))
+
+
+# ---------------------------------------------------------------------------
+# state forms: resident <-> pytree (what a checkpoint holds)
+# ---------------------------------------------------------------------------
+
+def _chain_state_of_lamb(form, step: int, m: Tree, v: Tree) -> "T.ChainOptState":
+    """The interpreter's ChainOptState for LAMB, from its ``("lamb",
+    n_prefix, n_mid)`` form: stateless stages around the Adam stage, the
+    schedule last, every counter equal to the step (they advance in
+    lockstep by construction)."""
+    _, n_prefix, n_mid = form
+    inner = ((T.EmptyState(),) * n_prefix
+             + (T.ScaleByAdamState(count=step, m=m, v=v),)
+             + (T.EmptyState(),) * n_mid
+             + (T.ScaleByScheduleState(count=step),))
+    return T.ChainOptState(step=step, inner=inner)
+
+
+def _chain_state_of_chain_form(state: FlatOptState) -> "T.ChainOptState":
+    """The interpreter's ChainOptState for a segment-plan resident state:
+    the ``("chain", slots)`` form tags every stage's state, the momentum
+    and moment views come from the resident buffers, and every counter
+    equals the step."""
+    _, slots = state.form
+    if "ema" in slots:
+        raise NotImplementedError(T.EMA_NOT_PORTED)
+    inner = []
+    for tag in slots:
+        if tag == "trace":
+            inner.append(T.TraceState(momentum=state.momentum))
+        elif tag == "sched":
+            inner.append(T.ScaleByScheduleState(count=state.step))
+        elif tag == "adam":
+            m, v = state.moments
+            inner.append(T.ScaleByAdamState(count=state.step, m=m, v=v))
+        else:
+            inner.append(T.EmptyState())
+    return T.ChainOptState(step=state.step, inner=tuple(inner))
+
+
+def to_pytree(state):
+    """Any state form -> its pytree form, lossless, as the JAX package's
+    ``to_pytree``: ``OptState`` (momentum dict) for the momentum kinds,
+    the interpreter's ``ChainOptState`` for LAMB (resident, or the plain
+    path's ``LambState``) and for segment-plan states.  ``OptState`` and
+    ``ChainOptState`` pass through.  The result's tensors are the
+    state's own (views into a resident state's buffers), not copies.
+    This is what a checkpoint holds, keyed as the JAX package keys it."""
+    if isinstance(state, LambState):
+        return _chain_state_of_lamb(state.form, state.step, state.m, state.v)
+    if not isinstance(state, FlatOptState):
+        return state
+    if isinstance(state.form, tuple) and state.form[0] == "chain":
+        return _chain_state_of_chain_form(state)
+    if state.m_flats:
+        return _chain_state_of_lamb(state.form, state.step, *state.moments)
+    return OptState(step=state.step, momentum=state.momentum)
+
+
+def _lamb_form_of(state: "T.ChainOptState") -> Optional[Tuple[str, int, int]]:
+    """``("lamb", n_prefix, n_mid)`` when the chain state has LAMB's shape
+    (one Adam stage, the schedule last, every other stage stateless)."""
+    adam_i = [i for i, s in enumerate(state.inner)
+              if isinstance(s, T.ScaleByAdamState)]
+    others_ok = all(isinstance(s, T.EmptyState)
+                    for i, s in enumerate(state.inner)
+                    if i not in adam_i and i != len(state.inner) - 1)
+    if (len(adam_i) == 1 and others_ok
+            and isinstance(state.inner[-1], T.ScaleByScheduleState)):
+        return ("lamb", adam_i[0], len(state.inner) - adam_i[0] - 2)
+    return None
+
+
+def _flat_of_chain_state(state: "T.ChainOptState", params: Tree,
+                         layout) -> FlatOptState:
+    """General ChainOptState -> the segment-plan ``("chain", slots)``
+    resident form: the momentum into ``u_flats`` or the Adam moments
+    into ``m_flats``/``v_flats`` (a chain carrying both has no flat
+    form)."""
+    slots, traces, adams = [], [], []
+    for s in state.inner:
+        if isinstance(s, T.TraceState):
+            slots.append("trace")
+            traces.append(s)
+        elif isinstance(s, T.ScaleByScheduleState):
+            slots.append("sched")
+        elif isinstance(s, T.ScaleByAdamState):
+            slots.append("adam")
+            adams.append(s)
+        elif isinstance(s, T.EmptyState):
+            slots.append("empty")
+        else:
+            raise TypeError(
+                f"from_pytree: no flat slot for chain stage state "
+                f"{type(s).__name__}; only the canonical transform states "
+                f"(trace/sched/adam/stateless) have a flat form")
+    if len(traces) > 1 or len(adams) > 1 or (traces and adams):
+        raise TypeError(
+            "from_pytree: only canonical single-momentum chain states have "
+            "a flat form (at most one trace XOR one scale_by_adam); got "
+            f"inner types {[type(s).__name__ for s in state.inner]}")
+
+    def packed(tree):
+        return tuple(flatten(tree, layout, cast_to=torch.float32))
+    return FlatOptState(
+        step=state.step, p_flats=tuple(flatten(params, layout)),
+        u_flats=packed(traces[0].momentum) if traces else (), layout=layout,
+        m_flats=packed(adams[0].m) if adams else (),
+        v_flats=packed(adams[0].v) if adams else (),
+        form=("chain", tuple(slots)))
+
+
+def from_pytree(state, params: Tree) -> FlatOptState:
+    """Pytree form -> the resident ``FlatOptState``, lossless; a
+    ``FlatOptState`` passes through and a ``LambState`` goes as its
+    ``ChainOptState``.  ``params`` gives the layout and the parameter
+    buffers.  A ChainOptState of LAMB's shape keeps the ``("lamb", ...)``
+    form, any other canonical chain state takes the segment planner's
+    ``("chain", slots)`` form, an ``OptState`` the momentum form.
+    Per-stage counters are taken to equal the step, as the chain update
+    keeps them.  The JAX package's ``mesh=`` is not taken (ROADMAP.md
+    Queue A9)."""
+    if isinstance(state, FlatOptState):
+        return state
+    if isinstance(state, LambState):
+        state = to_pytree(state)
+    layout = build_layout(params)
+    if isinstance(state, T.ChainOptState):
+        form = _lamb_form_of(state)
+        if form is None:
+            return _flat_of_chain_state(state, params, layout)
+        adam = state.inner[form[1]]
+        return FlatOptState(
+            step=state.step, p_flats=tuple(flatten(params, layout)),
+            u_flats=(), layout=layout,
+            m_flats=tuple(flatten(adam.m, layout, cast_to=torch.float32)),
+            v_flats=tuple(flatten(adam.v, layout, cast_to=torch.float32)),
+            form=form)
+    return FlatOptState(
+        step=state.step, p_flats=tuple(flatten(params, layout)),
+        u_flats=tuple(flatten(state.momentum, layout, cast_to=torch.float32)),
+        layout=layout)
+
+
+def lamb_state_of(state: "T.ChainOptState") -> LambState:
+    """A ChainOptState of LAMB's shape -> the plain path's ``LambState``
+    (the same tensors; the inverse of ``to_pytree`` on a LambState)."""
+    form = _lamb_form_of(state)
+    if form is None:
+        raise TypeError(f"not a LAMB chain state: inner types "
+                        f"{[type(s).__name__ for s in state.inner]}")
+    adam = state.inner[form[1]]
+    return LambState(state.step, adam.m, adam.v, form)
 
 
 def _resolve_fused(fused: Optional[str],
@@ -336,7 +500,7 @@ def _plain_lamb_step(grads: Tree, state: LambState, params: Tree, lr, *,
          * x.float() for k, x in u.items()}
     stats = {"grad_norm": gnorm, "lr": lr, "update_norm": global_norm(u)}
     new_p = {k: (w - lr * u[k]).to(w.dtype) for k, w in params.items()}
-    return new_p, LambState(state.step + 1, new_m, new_v), stats
+    return new_p, LambState(state.step + 1, new_m, new_v, state.form), stats
 
 
 def _lamb_optimizer(schedule: Schedule, *, b1: float, b2: float, eps: float,
@@ -368,7 +532,7 @@ def _lamb_optimizer(schedule: Schedule, *, b1: float, b2: float, eps: float,
         if isinstance(state, FlatOptState):
             if params is None:
                 params = state.params
-            state = LambState(state.step, *state.moments)
+            state = LambState(state.step, *state.moments, state.form)
         if params is None:
             raise TypeError("lamb's plain step needs params; only a "
                             "FlatOptState owner supports params=None")
@@ -377,7 +541,7 @@ def _lamb_optimizer(schedule: Schedule, *, b1: float, b2: float, eps: float,
     def init(params):
         if fused == "multi_tensor":
             return init_flat_adam_state(params, form=form)
-        return LambState(0, _zeros_f32(params), _zeros_f32(params))
+        return LambState(0, _zeros_f32(params), _zeros_f32(params), form)
 
     return Optimizer(name or "lamb", init, step_fn, kind="lamb")
 
@@ -588,9 +752,55 @@ def optimizer_names() -> Tuple[str, ...]:
     return tuple(sorted(OPTIMIZERS))
 
 
-def make_optimizer(name: str, schedule=None, **kw) -> Optimizer:
-    """``make_optimizer("sngm", schedule, beta=0.9, ...)``; ``schedule``
-    may be a callable or a ``{"name", "kwargs"}`` spec."""
+def builder_accepts(name: str, key: str) -> bool:
+    """Whether the registered builder takes ``key`` as a keyword: how the
+    launcher maps its fixed flag set onto each optimizer."""
+    return key in inspect.signature(OPTIMIZERS[name]).parameters
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerSpec:
+    """The JSON-safe identity of an optimizer, as in the JAX package:
+    registry ``name`` plus the builder kwargs, the schedule a declarative
+    ``{"name", "kwargs"}`` spec under ``kwargs["schedule"]``.  Persisted
+    in ``train_meta.json`` so ``--resume`` rebuilds the optimizer of the
+    original run, whichever package wrote it."""
+    name: str
+    kwargs: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.name not in OPTIMIZERS:
+            raise KeyError(f"unknown optimizer {self.name!r}; "
+                           f"available {optimizer_names()}")
+        if "schedule" not in self.kwargs:
+            raise ValueError("OptimizerSpec.kwargs must carry a 'schedule' "
+                             "spec ({'name': ..., 'kwargs': {...}})")
+
+    def to_json(self) -> dict:
+        out = {"name": self.name, "kwargs": dict(self.kwargs)}
+        json.dumps(out)   # fail fast on non-serializable kwargs
+        return out
+
+    @classmethod
+    def from_json(cls, d: Mapping[str, Any]) -> "OptimizerSpec":
+        return cls(name=d["name"], kwargs=dict(d["kwargs"]))
+
+    def build(self) -> Optimizer:
+        kwargs = dict(self.kwargs)
+        schedule = make_schedule(kwargs.pop("schedule"))
+        return OPTIMIZERS[self.name](schedule, **kwargs)
+
+
+def make_optimizer(name, schedule=None, **kw) -> Optimizer:
+    """Two forms, as in the JAX package:
+    ``make_optimizer("sngm", schedule, beta=0.9, ...)``, ``schedule`` a
+    callable or a ``{"name", "kwargs"}`` spec; or ``make_optimizer(spec)``
+    from an ``OptimizerSpec`` (no further arguments)."""
+    if isinstance(name, OptimizerSpec):
+        if schedule is not None or kw:
+            raise TypeError("make_optimizer(spec) takes no extra arguments; "
+                            "the spec already carries schedule and kwargs")
+        return name.build()
     if name not in OPTIMIZERS:
         raise KeyError(f"unknown optimizer {name!r}; available "
                        f"{optimizer_names()}")

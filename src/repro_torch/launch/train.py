@@ -14,10 +14,25 @@ It adds:
 
 Every optimizer of the JAX launcher runs (sngm, sngd, msgd, lars,
 lamb), in each execution mode it offers: ``--fused none``,
-``multi_tensor`` (all five) and ``per_leaf`` (sngm, sngd, lars).  Not
-ported yet, and refused with a clear error: checkpoints (``--ckpt``,
-``--resume``), ``--data-dir``, ``--ema-decay`` and meshes
-(``--model-axis``, ``--pod-axis``).
+``multi_tensor`` (all five) and ``per_leaf`` (sngm, sngd, lars).
+
+Checkpoints and resume are the JAX launcher's, in its on-disk format
+(``repro_torch.checkpoint``), so either launcher resumes the other's
+runs: ``--ckpt DIR`` saves {"params", "opt"} at the end (the pytree
+form of the state: a resident state is saved as its momentum or chain
+state, never its flat buffers) and ``train_meta.json`` (the schedule
+horizon and the ``OptimizerSpec``); ``--resume`` restores from DIR in
+whichever state form this run uses, adopts the saved spec and horizon,
+and continues from the saved step; ``--total-steps`` pins the schedule
+horizon across a save/resume split; ``--save-every K`` saves into
+step-named dirs under DIR (``step_00000010/``, ``latest``, pruned by
+``--keep-last-n``); ``--async-save`` commits on a background thread
+after a blocking device-to-host copy.  The data are ``SyntheticLM``,
+whose batch ``t`` depends on ``t`` and ``--seed`` alone, so a resumed
+run reads the batches of the uninterrupted one (give it the same
+``--seed``).  Not ported yet, and refused with a clear error:
+``--data-dir``, ``--ema-decay`` and meshes (``--model-axis``,
+``--pod-axis``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
         --reduced --device cpu --steps 4 --batch 4 --seq 32 \\
@@ -27,15 +42,21 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import inspect
+import json
+import os
 from typing import Any, List, Optional, Sequence
 
 import torch
 
 from repro_torch import prng
+from repro_torch.checkpoint import (AsyncCheckpointer, check_loadable,
+                                    load_checkpoint, resolve_checkpoint,
+                                    save_checkpoint, step_dir)
+from repro_torch.checkpoint.io import archive_keys
 from repro_torch.configs import ARCHS, get_config, smoke_variant
-from repro_torch.core.optim import (OPTIMIZERS, TrainState, make_optimizer,
-                                    optimizer_names)
+from repro_torch.core.optim import (FlatOptState, LambState, OptimizerSpec,
+                                    TrainState, builder_accepts, lamb_state_of,
+                                    make_optimizer, optimizer_names, to_pytree)
 from repro_torch.data import SyntheticLM
 from repro_torch.models import count, make_runtime, materialize, model_defs
 from repro_torch.tracker import (CompositeTracker, JsonlTracker, MemoryTracker,
@@ -44,6 +65,7 @@ from repro_torch.tracker.callbacks import StepTimer
 from repro_torch.training import make_train_step, run_steps
 
 NOT_PORTED = "is not ported yet (ROADMAP.md Queue A)"
+DEFAULT_OPTIMIZER = "sngm"
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -55,7 +77,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--n-micro", type=int, default=2)
-    ap.add_argument("--optimizer", default="sngm",
+    ap.add_argument("--optimizer", default=DEFAULT_OPTIMIZER,
                     choices=list(optimizer_names()))
     ap.add_argument("--fused", default="none",
                     choices=["none", "per_leaf", "multi_tensor"],
@@ -70,6 +92,27 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--nesterov", action="store_true",
                     help="look-ahead momentum (sngm, msgd); fused into the "
                          "update pass, so the launch count is unchanged")
+    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore {params, opt} from --ckpt (written by either "
+                         "package, any state form) and continue from the "
+                         "saved step, with the saved optimizer spec and "
+                         "schedule horizon")
+    ap.add_argument("--total-steps", type=int, default=0,
+                    help="schedule horizon (0 = --steps); set this when a "
+                         "run is split across save/resume segments so every "
+                         "segment builds the same poly_power schedule")
+    ap.add_argument("--save-every", type=int, default=0,
+                    help="checkpoint every K steps into step-named dirs "
+                         "under --ckpt (step_00000010/, latest symlink); "
+                         "0 = a single final save at --ckpt itself")
+    ap.add_argument("--keep-last-n", type=int, default=0,
+                    help="with --save-every: prune committed step_* dirs "
+                         "beyond the newest N (0 = keep all; symlink "
+                         "targets survive)")
+    ap.add_argument("--async-save", action="store_true",
+                    help="commit checkpoints on a background thread; the "
+                         "step pays only the device->host copy")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics-jsonl", default="",
                     help="append per-step metrics (loss, grad_norm, lr, "
@@ -78,20 +121,91 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--seed", type=int, default=0)
     # accepted so that the JAX launcher's command lines give a clear error
     ap.add_argument("--ema-decay", type=float, default=0.0)
-    ap.add_argument("--ckpt", default="")
-    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--data-dir", default="")
     ap.add_argument("--model-axis", type=int, default=1)
     ap.add_argument("--pod-axis", type=int, default=1)
     args = ap.parse_args(argv)
     for flag, on in (("--ema-decay", args.ema_decay != 0.0),
-                     ("--ckpt / --resume", bool(args.ckpt) or args.resume),
                      ("--data-dir", bool(args.data_dir)),
                      ("a mesh (--model-axis, --pod-axis)",
                       args.model_axis != 1 or args.pod_axis != 1)):
         if on:
             ap.error(f"{flag} {NOT_PORTED}")
     return args
+
+
+def spec_from_args(args, horizon: int) -> OptimizerSpec:
+    """The optimizer spec the flags give, keyword for keyword the JAX
+    launcher's (each optimizer takes the flags its builder accepts)."""
+    kwargs = {"schedule": {"name": "poly_power",
+                           "kwargs": {"lr0": args.lr, "total_steps": horizon,
+                                      "power": 1.1}}}
+    for k, v in (("beta", args.beta), ("weight_decay", args.weight_decay),
+                 ("nesterov", args.nesterov),
+                 ("ema_decay", args.ema_decay or None),
+                 ("fused", None if args.fused == "none" else args.fused)):
+        if builder_accepts(args.optimizer, k):
+            kwargs[k] = v
+    return OptimizerSpec(args.optimizer, kwargs)
+
+
+@dataclasses.dataclass
+class Plan:
+    """The run's identity: its optimizer spec and schedule horizon (on
+    ``--resume`` the checkpoint's, as the JAX launcher adopts them), the
+    checkpoint to resume, and the warnings to print."""
+    spec: OptimizerSpec
+    horizon: int
+    resume_path: str = ""
+    notes: List[str] = dataclasses.field(default_factory=list)
+
+
+def plan_run(args) -> Plan:
+    fused = None if args.fused == "none" else args.fused
+    horizon = args.total_steps or args.steps
+    saved_meta, resume_path, notes = {}, "", []
+    if args.resume:
+        if not args.ckpt:
+            raise SystemExit("--resume requires --ckpt")
+        # --ckpt may be the checkpoint itself or the BASE of a
+        # --save-every step_* family; follow latest/newest committed
+        resume_path = resolve_checkpoint(args.ckpt)
+        # the schedule horizon is part of the run's identity: adopt the
+        # saved one when --total-steps is omitted, warn on a mismatch
+        tm_path = os.path.join(args.ckpt, "train_meta.json")
+        if os.path.exists(tm_path):
+            with open(tm_path) as f:
+                saved_meta = json.load(f)
+            saved_horizon = saved_meta.get("total_steps")
+            if saved_horizon:
+                if not args.total_steps:
+                    horizon = saved_horizon
+                elif saved_horizon != horizon:
+                    notes.append(f"[train] WARNING: --total-steps {horizon} != "
+                                 f"checkpoint horizon {saved_horizon}; the lr "
+                                 f"schedule will not match the original run")
+    if args.resume and saved_meta.get("optimizer_spec"):
+        # the optimizer's identity travels with the run; only the
+        # execution mode (--fused) stays a per-run choice, and the
+        # horizon is re-pinned in case --total-steps forced another
+        spec = OptimizerSpec.from_json(saved_meta["optimizer_spec"])
+        if spec.name != args.optimizer and args.optimizer != DEFAULT_OPTIMIZER:
+            notes.append(f"[train] WARNING: --optimizer {args.optimizer} "
+                         f"ignored; resuming the checkpoint's {spec.name!r} "
+                         f"spec")
+        kwargs = dict(spec.kwargs)
+        if builder_accepts(spec.name, "fused"):
+            kwargs["fused"] = fused
+        sched = dict(kwargs["schedule"])
+        skw = dict(sched.get("kwargs", {}))
+        if "total_steps" in skw and skw["total_steps"] != horizon:
+            skw["total_steps"] = horizon
+            sched["kwargs"] = skw
+            kwargs["schedule"] = sched
+        spec = OptimizerSpec(spec.name, kwargs)
+    else:
+        spec = spec_from_args(args, horizon)
+    return Plan(spec, horizon, resume_path, notes)
 
 
 @dataclasses.dataclass
@@ -105,33 +219,131 @@ class Run:
     n_params: int
 
 
-def build(args) -> Run:
+def build(args, spec: Optional[OptimizerSpec] = None) -> Run:
     """Config, runtime, random weights, optimizer, train step and data,
-    as the launcher builds them."""
+    as the launcher builds them; the optimizer from ``spec``, or from
+    the flags."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = smoke_variant(cfg)
     rt = make_runtime(args.device, remat=not args.reduced)
     defs = model_defs(cfg)
     params = materialize(defs, prng.PRNGKey(args.seed), rt.device)
-    fused = None if args.fused == "none" else args.fused
-    schedule = {"name": "poly_power",
-                "kwargs": {"lr0": args.lr, "total_steps": args.steps,
-                           "power": 1.1}}
-    # each optimizer takes the flags its builder accepts, as in the JAX
-    # launcher (sngd and lamb have no beta; only sngm and msgd take nesterov)
-    accepts = inspect.signature(OPTIMIZERS[args.optimizer]).parameters
-    kw = {k: v for k, v in (("beta", args.beta),
-                            ("weight_decay", args.weight_decay),
-                            ("nesterov", args.nesterov), ("fused", fused))
-          if k in accepts}
-    opt = make_optimizer(args.optimizer, schedule, **kw)
+    if spec is None:
+        spec = spec_from_args(args, args.total_steps or args.steps)
+    opt = make_optimizer(spec)
     state = opt.init_state(params)
     del params
     step = make_train_step(cfg, rt, opt, n_micro=args.n_micro)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed,
                        branching=4, device=rt.device)
     return Run(cfg, opt, state, step, data, count(defs))
+
+
+def _restore(path: str, params, state):
+    """Restore {"params", "opt"} into the live state's own tensors, in
+    whichever state form it has: the archive holds the pytree form
+    (``OptState`` or ``ChainOptState``, whichever package wrote it), the
+    template is ``to_pytree`` of the live state (views into a resident
+    state's buffers), and each leaf is copied into its tensor as it is
+    read, so a restore needs no second copy of the state.  Returns
+    ({"params", "opt"}, step).
+
+    A torn directory (no ``COMMIT`` marker and not a demonstrably
+    complete legacy save) is rejected up front, and so is an archive of
+    the JAX package's flat buffers (``p_flats``), a form its launcher
+    does not write."""
+    try:
+        check_loadable(path)
+    except ValueError as e:
+        raise SystemExit(f"--resume: {e}") from e
+    if any("p_flats" in k for k in archive_keys(path)):
+        raise SystemExit(f"--resume: {path!r} holds a resident state's flat "
+                         f"buffers; save its to_pytree form instead")
+    restored, step = load_checkpoint(
+        path, {"params": params, "opt": to_pytree(state)}, into=True)
+    opt = restored["opt"]
+    if isinstance(state, FlatOptState):
+        opt = dataclasses.replace(state, step=opt.step)
+    elif isinstance(state, LambState):
+        opt = lamb_state_of(opt)
+    return {"params": restored["params"], "opt": opt}, step
+
+
+def resume(run: Run, path: str) -> int:
+    """Restore ``run.state`` from the checkpoint at ``path``; returns the
+    step to continue from."""
+    restored, start = _restore(path, run.state.params_view,
+                               run.state.opt_state)
+    run.state = TrainState.wrap(restored["params"], restored["opt"])
+    return start
+
+
+class Saves:
+    """``--ckpt``, ``--save-every``, ``--keep-last-n``, ``--async-save``:
+    the periodic step hook and the final save, as the JAX launcher makes
+    them.  Each save holds the live state's pytree form."""
+
+    def __init__(self, args, plan: Plan):
+        self.args, self.plan = args, plan
+        self.saver = (AsyncCheckpointer() if (args.ckpt and args.async_save)
+                      else None)
+        self.step_hook = None
+        if args.ckpt and args.save_every > 0:
+            # train_meta.json up front, so an interrupted run is already
+            # resumable from its newest periodic save
+            self.write_meta()
+            self.step_hook = self._hook
+
+    def train_meta(self):
+        return {"total_steps": self.plan.horizon,
+                "optimizer": self.plan.spec.name, "lr": self.args.lr,
+                "optimizer_spec": self.plan.spec.to_json()}
+
+    def write_meta(self):
+        os.makedirs(self.args.ckpt, exist_ok=True)
+        with open(os.path.join(self.args.ckpt, "train_meta.json"), "w") as f:
+            json.dump(self.train_meta(), f)
+
+    def save_step(self, step_no: int, state: TrainState):
+        tree = {"params": state.params_view, "opt": state.opt_state}
+        # keep_last_n=0 still maintains the latest/best symlinks
+        dest = step_dir(self.args.ckpt, step_no)
+        if self.saver is not None:
+            self.saver.save(dest, tree, step_no,
+                            keep_last_n=self.args.keep_last_n)
+        else:
+            save_checkpoint(dest, tree, step_no,
+                            keep_last_n=self.args.keep_last_n)
+
+    def _hook(self, t: int, state: TrainState):
+        if (t + 1) % self.args.save_every == 0:
+            self.save_step(t + 1, state)
+
+    def finish(self, state: TrainState, start: int):
+        """The final save (into the step-named family, or at --ckpt
+        itself), train_meta.json, then drain the async saves."""
+        args = self.args
+        if args.ckpt:
+            final_step = max(start, args.steps)
+            in_family = args.save_every > 0 or (
+                os.path.isdir(args.ckpt)
+                and resolve_checkpoint(args.ckpt) != args.ckpt)
+            if in_family:
+                # periodic mode, or a resume whose --ckpt is the BASE of a
+                # family: join it rather than clobber the base
+                hook_saved = (args.save_every > 0 and final_step > start
+                              and final_step % args.save_every == 0)
+                if not hook_saved:
+                    self.save_step(final_step, state)
+            else:
+                save_checkpoint(args.ckpt, {"params": state.params_view,
+                                            "opt": state.opt_state},
+                                step=final_step)
+            self.write_meta()
+            print(f"[train] checkpoint -> {args.ckpt}")
+        if self.saver is not None:
+            self.saver.close()           # drain pending commits, re-raise
 
 
 def fmt(t, m):
@@ -141,25 +353,36 @@ def fmt(t, m):
             f"({m.get('it_per_s', 0.0):.2f} it/s)")
 
 
-def train(args, run: Run):
-    """Run ``args.steps`` steps; returns (final state, MemoryTracker)."""
+def train(args, run: Run, start: int = 0, step_hook=None):
+    """Run steps ``start`` to ``args.steps``; returns (final state,
+    MemoryTracker)."""
     mem = MemoryTracker()
     backends = [mem, StdoutTracker(every=args.log_every, fmt=fmt)]
     if args.metrics_jsonl:
         backends.append(JsonlTracker(args.metrics_jsonl))
     state = run_steps(run.step, run.state, run.data.batch_at, args.steps,
-                      tracker=CompositeTracker(backends),
+                      start=start, tracker=CompositeTracker(backends),
                       log_every=args.log_every,
-                      callbacks=[StepTimer(tokens_per_step=args.batch * args.seq)])
+                      callbacks=[StepTimer(tokens_per_step=args.batch * args.seq)],
+                      step_hook=step_hook)
     return state, mem
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     args = parse_args(argv)
-    run = build(args)
+    plan = plan_run(args)
+    run = build(args, plan.spec)
     print(f"[train] {run.cfg.name}: {run.n_params:,} params on 1 device(s) "
           f"across 1 process(es)")
-    _, mem = train(args, run)
+    for note in plan.notes:
+        print(note)
+    start = 0
+    if args.resume:
+        start = resume(run, plan.resume_path)
+        print(f"[train] resumed {plan.resume_path} at step {start}")
+    saves = Saves(args, plan)
+    state, mem = train(args, run, start, saves.step_hook)
+    saves.finish(state, start)
     return mem.series("loss")
 
 

@@ -384,8 +384,9 @@ def test_launcher_accepts_and_runs_per_leaf(capsys):
     assert len(steps) == 1 and LINE.match(steps[0]) and np.isfinite(losses[0])
 
 
-@pytest.mark.parametrize("flags", [["--ckpt", "x"],
-                                   ["--resume"], ["--data-dir", "d"],
+@pytest.mark.parametrize("flags", [["--pod-axis", "2"],
+                                   ["--data-dir", "d", "--resume", "--ckpt", "x"],
+                                   ["--data-dir", "d"],
                                    ["--ema-decay", "0.9"], ["--model-axis", "2"]])
 def test_launcher_refuses_what_is_not_ported(flags, capsys):
     with pytest.raises(SystemExit):
