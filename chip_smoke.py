@@ -12,7 +12,9 @@ path, and with three gradient-transform chains compiled onto the engine
 through ``fused_update``'s deferred apply), every optimizer pass a
 hand-written CUDA kernel; a save and resume of SNGM and LAMB training
 on the engine; and the RMSNorm and flash attention op entry points,
-each a hand-written CUDA kernel.  Holds every kernel (11 rows:
+each a hand-written CUDA kernel; and training from a packed dataset on
+disk through the streaming loader and host-to-device prefetch.  Holds
+every kernel (11 rows:
 the deferred apply has its own) against its plain PyTorch version.
 
     python3 chip_smoke.py
@@ -132,20 +134,40 @@ Phases, each raising on failure:
      as in phase 10);
  18. checkpoints and resume at full width through the launcher's own
      functions (``plan_run``, ``build``, ``Saves``, ``train``, ``resume``):
-     SNGM on the engine at all 18 layers and LAMB on the engine at 2
-     (depth cut further only if the disk cannot hold the checkpoint about
-     twice, logged), phase 9's batch: steps 0-1 with ``--save-every 2
-     --async-save`` (the async save's blocking copy timed at the step
-     boundary beside the step time, its commit, and a sync save of the
-     same state), then a fresh run from the saved ``train_meta.json`` with
-     ``--resume`` (load timed): every restored byte bitwise the live
-     state's at step 2, the spec and horizon adopted; steps 2-3 from the
-     restored state (1 ``chunk_sumsq`` + 1 ``fused_update`` a step; LAMB:
-     1 ``adam_update`` + 1 ``scale_apply``; counts set to 0 just before,
+     SNGM on the engine at all 18 layers, its batches read from a pack
+     on disk with ``--data-dir --prefetch 2``, and LAMB on the engine at
+     2 on ``SyntheticLM`` (depth cut further only if the disk cannot hold
+     the checkpoint about twice, logged), phase 9's batch: steps 0-1 with
+     ``--save-every 2 --async-save`` (the async save's blocking copy
+     timed at the step boundary beside the step time, its commit, and a
+     sync save of the same state; the step-2 checkpoint's
+     ``loader_state`` the host loader's cursor after 2 batches), then a
+     fresh run from the saved ``train_meta.json`` with ``--resume`` (load
+     timed): every restored byte bitwise the live state's at step 2, the
+     spec, horizon and data cursor adopted; steps 2-3 from the restored
+     state (1 ``chunk_sumsq`` + 1 ``fused_update`` a step; LAMB: 1
+     ``adam_update`` + 1 ``scale_apply``; counts set to 0 just before,
      read just after) within twice the difference between two runs of
-     steps 2-3 from the live state (0 if they repeat); the files in a
-     scratch dir under ``build/``, removed at the end;
- 19. one JSON line of kernel timings against their bounds (11 rows;
+     steps 2-3 from the live state (0 if they repeat), and the batches
+     they consumed, read back from the card, bitwise the live runs' and
+     the host loader's batches 2-3; the files in a scratch dir under
+     ``build/``, removed at the end.  The pack (made once before this
+     phase, timed, through ``repro_torch.data.pack``): a synthetic-LM
+     dataset at gemma-2b's vocab (256000) and seq 512, 56 examples in 7
+     shards of 8, so an epoch is 7 batches of 8;
+ 19. the data pipeline at full width through the launcher's own
+     functions: SNGM on the engine at all 18 layers, 9 steps from the
+     pack (across the epoch boundary at step 7), once with ``--prefetch
+     2`` and once with ``--prefetch 0``, the launch counts (1
+     ``chunk_sumsq`` + 1 ``fused_update`` a step) set to 0 just before
+     each run and read just after; every batch a step consumed, read
+     back from the card, bitwise the host loader's; the two runs' losses,
+     grad norms and update norms equal (bitwise, or within twice the
+     difference between two ``--prefetch 0`` runs if steps do not
+     repeat); logged per step: the input stall, the prefetch depth and
+     the step time, and once the host-to-device copy of one batch (its
+     bytes, timed with events on the training stream);
+ 20. one JSON line of kernel timings against their bounds (11 rows;
      flash attention's row is the bf16 gemma-2b prefill), then the JSON
      result line.
 
@@ -157,6 +179,7 @@ device spin before the start event, so the host's enqueue (logged as
     python3 chip_smoke.py --paged-only  # phases 1, 2 and 5: the paged kernel
     python3 chip_smoke.py --chains-only # phases 1 and 15-17: the chains
     python3 chip_smoke.py --ckpt-only   # phases 1 and 18: checkpoints, resume
+    python3 chip_smoke.py --data-only   # phases 1 and 19, with the pack
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -165,6 +188,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import shutil
@@ -1725,13 +1749,13 @@ def phase_chain_vs_interp(torch, cfg, n_layers=2):
 # ---------------------------------------------------------------------------
 
 # (what, launcher flags, depth (None: the full 18 layers), kernel launches
-# per resumed step)
+# per resumed step, whether it reads the pack with --prefetch 2)
 CKPT_RUNS = {
     "sngm": ("SNGM on the engine", ["--optimizer", "sngm", "--fused", "multi_tensor"],
-             None, {"chunk_sumsq": 1, "fused_update": 1}),
+             None, {"chunk_sumsq": 1, "fused_update": 1}, True),
     "lamb": ("LAMB on the engine (lr 0.01)",
              ["--optimizer", "lamb", "--fused", "multi_tensor", "--lr", "0.01"],
-             2, {"adam_update": 1, "scale_apply": 1}),
+             2, {"adam_update": 1, "scale_apply": 1}, False),
 }
 # the resumed steps against the live state's: within this many times the
 # difference between two runs from the live state themselves (0 if the
@@ -1792,7 +1816,43 @@ def ckpt_layers(name, root, need_x=2.1):
     return None if n == cfg.n_layers else n
 
 
-def phase_ckpt(torch, kernels, train_mod, name, root):
+def record_batches(run):
+    """Wrap ``run.step`` to keep a device copy of every batch a step
+    consumes (cloned on the training stream, read back later)."""
+    seen = []
+    step = run.step
+
+    def recorded(state, batch):
+        seen.append({k: v.clone() for k, v in batch.items()})
+        return step(state, batch)
+    run.step = recorded
+    return seen
+
+
+def host_stream(pack, n):
+    """The host loader's first ``n`` batches of the pack (batch 8, seed 0,
+    the launcher's) and its cursor after each (the first: before any)."""
+    from repro_torch.data import DiskShardedSource, StreamingLoader
+    loader = StreamingLoader(DiskShardedSource(str(pack)), 8, seed=0)
+    batches, states = [], [loader.state]
+    for _ in range(n):
+        batches.append(next(loader))
+        states.append(loader.state)
+    loader.close()
+    return batches, states
+
+
+def same_batches(torch, what, got, want):
+    """Batches read back from the card against host batches, bitwise."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} batches, want {len(want)}")
+    for t, (g, w) in enumerate(zip(got, want)):
+        if sorted(g) != sorted(w) or not all(
+                same_bits(torch, g[k].cpu(), w[k]) for k in w):
+            raise AssertionError(f"{what}: batch {t} differs")
+
+
+def phase_ckpt(torch, kernels, train_mod, name, root, pack):
     """Phase 18 for one optimizer, through the launcher's own functions:
     steps 0-1 with ``--save-every 2 --async-save`` (the async save's
     blocking copy timed at the step boundary, its commit, then a sync save
@@ -1803,12 +1863,16 @@ def phase_ckpt(torch, kernels, train_mod, name, root):
     against steps 2-3 from the live state, run twice."""
     from repro_torch.checkpoint import save_checkpoint
     from repro_torch.checkpoint.io import _flatten
-    what, flags, _, per_step = CKPT_RUNS[name]
+    from repro_torch.checkpoint import load_loader_state
+    what, flags, _, per_step, reads_pack = CKPT_RUNS[name]
     n_layers = ckpt_layers(name, root)
     ck = root / name
     common = ["--arch", ARCH, "--batch", "8", "--seq", "512", "--n-micro", "2",
               "--weight-decay", "1e-4", "--log-every", "1", "--device", "cuda",
               "--seed", "0", *flags]
+    if reads_pack:
+        common += ["--data-dir", str(pack), "--prefetch", "2"]
+        host_batches, host_states = host_stream(pack, 4)
     with depth_cut(train_mod, n_layers):
         args = train_mod.parse_args(common + [
             "--steps", "2", "--total-steps", "4", "--ckpt", str(ck),
@@ -1818,7 +1882,8 @@ def phase_ckpt(torch, kernels, train_mod, name, root):
     ck_bytes = sum(v.numel() * v.element_size() if torch.is_tensor(v) else 4
                    for v in _flatten({"params": run.state.params_view,
                                       "opt": run.state.opt_state}).values())
-    saves = train_mod.Saves(args, plan)
+    saves = train_mod.Saves(args, plan, run.loader_state)
+    seen_a = record_batches(run)
     timing = {}
     save_step = saves.save_step
 
@@ -1846,6 +1911,16 @@ def phase_ckpt(torch, kernels, train_mod, name, root):
         f"({gb / async_s:.2f} GB/s); sync save {sync_s:.2f} s "
         f"({gb / sync_s:.2f} GB/s)")
     live = [b.to("cpu", copy=True) for b in state_buffers(state)]   # step 2
+    cursor = run.loader_state()               # the live stream at batch 2
+    if reads_pack:
+        saved = load_loader_state(str(ck / "step_00000002"))
+        if saved != host_states[2].to_dict() or cursor != host_states[2]:
+            raise AssertionError(f"{what}: step-2 loader_state {saved}, the "
+                                 f"live stream's {cursor}, want {host_states[2]}")
+        same_batches(torch, f"{what} steps 0-1", seen_a, host_batches[:2])
+        log(f"{what}: the step-2 checkpoint's loader_state {saved} is the host "
+            f"loader's cursor after 2 batches; steps 0-1 read the host "
+            f"loader's batches 0-1, bitwise")
 
     with depth_cut(train_mod, n_layers):
         args_b = train_mod.parse_args(common + ["--steps", "4", "--ckpt", str(ck),
@@ -1868,6 +1943,10 @@ def phase_ckpt(torch, kernels, train_mod, name, root):
     if not all(same):
         raise AssertionError(f"{what}: restored buffers differ from the live "
                              f"state at step 2: {same}")
+    if run_b.loader_state() != cursor:
+        raise AssertionError(f"{what}: resumed data cursor "
+                             f"{run_b.loader_state()}, saved {cursor}")
+    seen_b = record_batches(run_b)
     log(f"loaded {load_s:.2f} s ({gb / load_s:.2f} GB/s; the file was written "
         f"moments before, the page cache not dropped); every restored byte "
         f"(params, f32 slots, padding) and the step equal the live state's at "
@@ -1881,16 +1960,22 @@ def phase_ckpt(torch, kernels, train_mod, name, root):
     if {k: launches[k] for k in OPT_KERNELS} != want:
         raise AssertionError(f"{what}: resumed launches {launches}, want {want}")
     resumed = state_buffers(state_b)   # B's buffers, kept for the diffs
+    if reads_pack:
+        run_b.data.close()
     del run_b, state_b
 
     # steps 2-3 from the live state, twice, with at most two states and
     # the activations on the card at once (80 GB)
-    recs = []
+    recs, seen_live = [], []
     for i in range(2):
         for b, h in zip(state_buffers(state), live):
             b.copy_(h)
         run.state = state
+        if reads_pack:
+            run.data.seek(cursor)
+        seen_a.clear()
         _, m = train_mod.train(args_b, run, 2)
+        seen_live.append(list(seen_a))
         recs.append([r for _, r in m.steps])
         if i == 0:
             d_res = max_abs_diff(torch, state_buffers(state), resumed)
@@ -1914,21 +1999,210 @@ def phase_ckpt(torch, kernels, train_mod, name, root):
         raise AssertionError(f"{what}: the resumed steps differ from the live "
                              f"ones by {d_res} (state) / {s_res} (stats), two "
                              f"live runs by {d_live} / {s_live}")
+    if reads_pack:
+        for i, seen in enumerate(seen_live):
+            same_batches(torch, f"{what} live run {i + 1}", seen,
+                         host_batches[2:])
+        same_batches(torch, f"{what} resumed", seen_b,
+                     [{k: v.cpu() for k, v in b.items()} for b in seen_live[0]])
+        log(f"{what}: the resumed run's batches 2-3, read back from the card, "
+            f"are bitwise the live runs' and the host loader's batches 2-3")
+        run.data.close()
     del run, state, live, buf1
     torch.cuda.empty_cache()
     shutil.rmtree(ck)
 
 
-def ckpt_phases(torch, kernels, train_mod):
+def ckpt_phases(torch, kernels, train_mod, pack):
     """Phase 18: both round trips in a git-ignored scratch dir under
     ``build/``, removed at the end."""
     (ROOT / "build").mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="ckpt_smoke_", dir=ROOT / "build"))
     try:
         for name in CKPT_RUNS:
-            phase_ckpt(torch, kernels, train_mod, name, root)
+            phase_ckpt(torch, kernels, train_mod, name, root, pack)
+            gc.collect()               # the timed hook's cycle holds the run
+            torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# the pack (phases 18-19) and phase 19: the data pipeline at full width
+# ---------------------------------------------------------------------------
+
+# 56 examples in 7 shards of 8: an epoch is 7 batches of phase 9's 8
+PACK_EXAMPLES, PACK_SHARD, PACK_SEQ = 56, 8, 512
+DATA_STEPS = 9                     # crosses the epoch boundary at step 7
+DATA_FLAGS = ["--optimizer", "sngm", "--fused", "multi_tensor"]
+
+
+@contextlib.contextmanager
+def scratch_pack(vocab):
+    """A synthetic-LM pack at ``vocab`` through ``repro_torch.data.pack``'s
+    CLI, timed, in a git-ignored scratch dir under ``build/`` that is
+    removed at the end."""
+    from repro_torch.data import DiskShardedSource
+    from repro_torch.data import pack as pack_mod
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="data_smoke_", dir=ROOT / "build"))
+    try:
+        out = root / "pack"
+        t0 = time.perf_counter()
+        pack_mod.main([str(out), "--synthetic-lm", "--vocab", str(vocab),
+                       "--seq", str(PACK_SEQ), "--n", str(PACK_EXAMPLES),
+                       "--shard-size", str(PACK_SHARD), "--seed", "0"])
+        pack_s = time.perf_counter() - t0
+        src = DiskShardedSource(str(out))
+        if src.shard_lengths() != (PACK_SHARD,) * (PACK_EXAMPLES // PACK_SHARD) \
+                or src.meta["vocab_size"] != vocab:
+            raise AssertionError(f"pack: shards {src.shard_lengths()}, "
+                                 f"meta {src.meta}")
+        nbytes = sum(f.stat().st_size for f in out.iterdir())
+        log(f"pack: {PACK_EXAMPLES} synthetic-LM examples (vocab {vocab}, seq "
+            f"{PACK_SEQ}) in {len(src.shard_lengths())} shards of {PACK_SHARD}, "
+            f"{nbytes:,} bytes on disk, packed in {pack_s:.2f} s on the host")
+        yield out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def time_h2d(torch, batch, n=20):
+    """The host-to-device copy of one host batch as the launcher stages
+    it (one ``HostToDevice``: a pinned ring, its side stream, an event),
+    waited for on the training stream: the median ms between events
+    recorded on that stream around ``place(batch).wait()``, and the host
+    ms of the call."""
+    from repro_torch.data.prefetch import HostToDevice
+    place = HostToDevice("cuda", slots=4)
+    dev, host = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        place(batch).wait()
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+        dev.append(start.elapsed_time(end))
+    return float(np.median(dev)), float(np.median(host))
+
+
+def data_run(torch, kernels, train_mod, pack, prefetch):
+    """One 9-step SNGM run of full-width gemma-2b from the pack, through
+    the launcher's ``build``/``train``: the step records, the stall and
+    depth per step (``--prefetch 0``: the time each ``next()`` of the
+    training thread took, the depth 0), the batches the steps consumed
+    (read back from the card) and the launch counts, set to 0 just
+    before the run and read just after."""
+    args = train_mod.parse_args(
+        ["--arch", ARCH, "--steps", str(DATA_STEPS), "--batch", "8",
+         "--seq", "512", "--n-micro", "2", "--weight-decay", "1e-4",
+         "--log-every", "1", "--device", "cuda", "--seed", "0",
+         "--data-dir", str(pack), "--prefetch", str(prefetch), *DATA_FLAGS])
+    run = train_mod.build(args)
+    if run.seq != PACK_SEQ:
+        raise AssertionError(f"the run's seq {run.seq}, the pack's {PACK_SEQ}")
+    seen = record_batches(run)
+    sync_stalls = []
+    if prefetch == 0:
+        start = run.data.start
+
+        def timed_start():
+            it = start()
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    b = next(it)
+                except StopIteration:
+                    return
+                sync_stalls.append(time.perf_counter() - t0)
+                yield b
+        run.data.start = timed_start
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    _, mem = train_mod.train(args, run)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    recs = [m for _, m in mem.steps]
+    if prefetch:
+        stalls = [m["input_stall_s"] for m in recs]
+        depths = [m["prefetch_depth"] for m in recs]
+    else:
+        stalls, depths = sync_stalls, [0] * len(recs)
+    batches = [{k: v.cpu() for k, v in b.items()} for b in seen]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    run.data.close()
+    del run, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs, stalls, depths, batches, launches, peak_gib
+
+
+def phase_data(torch, kernels, train_mod, pack):
+    """Phase 19: 9 steps with ``--prefetch 2`` and with ``--prefetch 0``
+    (and a second ``--prefetch 0`` run if the two differ), each batch
+    bitwise the host loader's, the runs' stats equal or within twice the
+    difference of two ``--prefetch 0`` runs; the per-step input stall,
+    depth and step time, and one batch's host-to-device copy."""
+    host_batches, host_states = host_stream(pack, DATA_STEPS)
+    per_epoch = PACK_EXAMPLES // 8
+    if host_states[per_epoch].epoch != 0 or host_states[per_epoch + 1].epoch != 1:
+        raise AssertionError(f"epoch boundary not at step {per_epoch}: "
+                             f"{host_states}")
+    nbytes = sum(v.numel() * v.element_size() for v in host_batches[0].values())
+    copy_ms, copy_host_ms = time_h2d(torch, host_batches[0])
+    log(f"one batch ({nbytes:,} bytes: tokens int32 + loss_mask fp32, 8 x "
+        f"{PACK_SEQ}) host to device (a pinned ring, a side stream), waited for on "
+        f"the training stream: {copy_ms * 1e3:.1f} us between events "
+        f"({nbytes / (copy_ms * 1e-3) / 1e9:.3f} GB/s), the call {copy_host_ms * 1e3:.1f} "
+        f"us on the host (median of 20)")
+    keys = ("loss", "grad_norm", "update_norm")
+    runs = {}
+    for label, prefetch in (("prefetch 2", 2), ("prefetch 0", 0)):
+        recs, stalls, depths, batches, launches, peak = data_run(
+            torch, kernels, train_mod, pack, prefetch)
+        want = {k: {"chunk_sumsq": DATA_STEPS, "fused_update": DATA_STEPS}.get(k, 0)
+                for k in OPT_KERNELS}
+        if {k: launches[k] for k in OPT_KERNELS} != want:
+            raise AssertionError(f"{label}: launches {launches}, want {want}")
+        if len(recs) != DATA_STEPS or not all(
+                np.isfinite(m[k]) for m in recs for k in keys):
+            raise AssertionError(f"{label}: step records {recs}")
+        same_batches(torch, label, batches, host_batches)
+        step_s = [m["step_time_s"] for m in recs]
+        log(f"{label}: {DATA_STEPS} steps, launches chunk_sumsq "
+            f"{launches['chunk_sumsq']}, fused_update {launches['fused_update']}; "
+            f"every batch, read back from the card, bitwise the host loader's "
+            f"(steps 7-8 from epoch 1); peak device memory {peak:.2f} GiB; "
+            f"losses {fmt_all(recs, 'loss', '.6f')}")
+        for t in range(DATA_STEPS):
+            log(f"  {label} step {t}: input stall {stalls[t] * 1e3:.3f} ms, "
+                f"depth {depths[t]}, step {step_s[t]:.3f} s")
+        steady = slice(1, None)
+        log(f"{label}: input stall median {np.median(stalls[steady]) * 1e3:.3f} ms "
+            f"(max {max(stalls[steady]) * 1e3:.3f}) beside a median step of "
+            f"{np.median(step_s[steady]):.3f} s, steps 1-{DATA_STEPS - 1}; step 0 "
+            f"stall {stalls[0] * 1e3:.3f} ms, depth avg "
+            f"{np.mean(depths):.2f}")
+        runs[label] = recs
+    diff = max(abs(a[k] - b[k]) for a, b in zip(runs["prefetch 2"], runs["prefetch 0"])
+               for k in keys)
+    if diff == 0:
+        log("prefetch 2 against prefetch 0: losses, grad norms and update "
+            "norms bitwise equal at every step")
+        return
+    recs = data_run(torch, kernels, train_mod, pack, 0)[0]
+    slack = max(abs(a[k] - b[k]) for a, b in zip(runs["prefetch 0"], recs)
+                for k in keys)
+    log(f"prefetch 2 against prefetch 0: max stats difference {diff:.3e}; two "
+        f"prefetch 0 runs {slack:.3e}")
+    if diff > RESUME_SLACK * slack:
+        raise AssertionError(f"prefetch 2 and 0 differ by {diff}, two prefetch "
+                             f"0 runs by {slack}")
 
 
 # ---------------------------------------------------------------------------
@@ -2331,6 +2605,9 @@ def main(argv=None) -> int:
     ap.add_argument("--ckpt-only", action="store_true",
                     help="phases 1 and 18 only (checkpoints and resume at "
                          "full width); prints no kernel rows")
+    ap.add_argument("--data-only", action="store_true",
+                    help="phase 1, the pack and phase 19 only (the data "
+                         "pipeline at full width); prints no kernel rows")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
@@ -2364,7 +2641,7 @@ def main(argv=None) -> int:
     lars = SimpleNamespace(ops=lars_ops, ref=lars_ref)
     t_start = time.perf_counter()
     libs = {"paged_attention": [ops.SOURCE]}
-    if args.chains_only or args.ckpt_only:
+    if args.chains_only or args.ckpt_only or args.data_only:
         libs[mt_ops.LIB_NAME] = [mt_ops.SOURCE]
     elif not args.paged_only:
         libs.update({mt_ops.LIB_NAME: [mt_ops.SOURCE],
@@ -2382,7 +2659,11 @@ def main(argv=None) -> int:
         rows.update(chain_phases(torch, kernels, mt_ops, mt_ref, train_mod,
                                  get_config(ARCH)))
     elif args.ckpt_only:
-        ckpt_phases(torch, kernels, train_mod)
+        with scratch_pack(get_config(ARCH).vocab_size) as pack:
+            ckpt_phases(torch, kernels, train_mod, pack)
+    elif args.data_only:
+        with scratch_pack(get_config(ARCH).vocab_size) as pack:
+            phase_data(torch, kernels, train_mod, pack)
     elif not args.ops_only:
         err = phase_kernel(torch, ops, ref)
         rt = make_runtime("cuda")
@@ -2424,10 +2705,13 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         phase_fused_vs_plain(torch, cfg)
         rows.update(chain_phases(torch, kernels, mt_ops, mt_ref, train_mod, cfg))
-        ckpt_phases(torch, kernels, train_mod)
+        with scratch_pack(cfg.vocab_size) as pack:
+            ckpt_phases(torch, kernels, train_mod, pack)
+            phase_data(torch, kernels, train_mod, pack)
         t_train = time.perf_counter()
 
-    if not (args.paged_only or args.chains_only or args.ckpt_only):
+    if not (args.paged_only or args.chains_only or args.ckpt_only
+            or args.data_only):
         phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
         cases = ops_cases(torch)
         outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)

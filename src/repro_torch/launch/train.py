@@ -27,12 +27,23 @@ and continues from the saved step; ``--total-steps`` pins the schedule
 horizon across a save/resume split; ``--save-every K`` saves into
 step-named dirs under DIR (``step_00000010/``, ``latest``, pruned by
 ``--keep-last-n``); ``--async-save`` commits on a background thread
-after a blocking device-to-host copy.  The data are ``SyntheticLM``,
-whose batch ``t`` depends on ``t`` and ``--seed`` alone, so a resumed
-run reads the batches of the uninterrupted one (give it the same
-``--seed``).  Not ported yet, and refused with a clear error:
-``--data-dir``, ``--ema-decay`` and meshes (``--model-axis``,
-``--pod-axis``).
+after a blocking device-to-host copy.
+
+Data: by default ``SyntheticLM.batch_at(t)``, which depends on ``t``
+and ``--seed`` alone, so a resumed run reads the batches of the
+uninterrupted one (give it the same ``--seed``).  ``--data-dir`` trains
+from an on-disk ``repro-data-pack`` (``python -m repro_torch.data.pack``)
+through the ``StreamingLoader`` (seeded by ``--seed``; at 0 it is the
+JAX launcher's stream) with ``--prefetch``-deep host-to-device prefetch
+(``PrefetchIterator``: pinned batches copied on a side stream; 0 places
+each batch on the training thread).  The sequence length is the pack's
+``seq_len``.  The cursor of the next batch training consumes rides
+every checkpoint (``loader_state``: the prefetcher's snapshot, never the
+loader's run-ahead position), so ``--resume`` re-seeks the stream and
+batch ``t`` after a resume is bitwise batch ``t`` of an uninterrupted
+run, whichever launcher wrote the checkpoint.  Not ported yet, and
+refused with a clear error: ``--ema-decay`` and meshes
+(``--model-axis``, ``--pod-axis``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
         --reduced --device cpu --steps 4 --batch 4 --seq 32 \\
@@ -44,24 +55,27 @@ import argparse
 import dataclasses
 import json
 import os
-from typing import Any, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Union
 
 import torch
 
 from repro_torch import prng
 from repro_torch.checkpoint import (AsyncCheckpointer, check_loadable,
-                                    load_checkpoint, resolve_checkpoint,
-                                    save_checkpoint, step_dir)
+                                    load_checkpoint, load_loader_state,
+                                    resolve_checkpoint, save_checkpoint,
+                                    step_dir)
 from repro_torch.checkpoint.io import archive_keys
 from repro_torch.configs import ARCHS, get_config, smoke_variant
 from repro_torch.core.optim import (FlatOptState, LambState, OptimizerSpec,
                                     TrainState, builder_accepts, lamb_state_of,
                                     make_optimizer, optimizer_names, to_pytree)
-from repro_torch.data import SyntheticLM
+from repro_torch.data import (DiskShardedSource, LoaderState,
+                              PrefetchIterator, StreamingLoader, SyntheticLM)
+from repro_torch.data.prefetch import HostToDevice
 from repro_torch.models import count, make_runtime, materialize, model_defs
 from repro_torch.tracker import (CompositeTracker, JsonlTracker, MemoryTracker,
                                  StdoutTracker)
-from repro_torch.tracker.callbacks import StepTimer
+from repro_torch.tracker.callbacks import PrefetchMonitor, StepTimer
 from repro_torch.training import make_train_step, run_steps
 
 NOT_PORTED = "is not ported yet (ROADMAP.md Queue A)"
@@ -119,14 +133,21 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                          "wall-clock, tokens/sec) as JSON lines to this path")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--data-dir", default="",
+                    help="train from an on-disk repro-data-pack dataset "
+                         "(python -m repro_torch.data.pack) via the sharded "
+                         "StreamingLoader; its LoaderState rides every "
+                         "checkpoint for exact-batch resume.  Default: the "
+                         "synthetic batch_at stream")
+    ap.add_argument("--prefetch", type=int, default=2,
+                    help="host->device prefetch depth for --data-dir runs "
+                         "(0 = synchronous next(); 2 = double buffering)")
     # accepted so that the JAX launcher's command lines give a clear error
     ap.add_argument("--ema-decay", type=float, default=0.0)
-    ap.add_argument("--data-dir", default="")
     ap.add_argument("--model-axis", type=int, default=1)
     ap.add_argument("--pod-axis", type=int, default=1)
     args = ap.parse_args(argv)
     for flag, on in (("--ema-decay", args.ema_decay != 0.0),
-                     ("--data-dir", bool(args.data_dir)),
                      ("a mesh (--model-axis, --pod-axis)",
                       args.model_axis != 1 or args.pod_axis != 1)):
         if on:
@@ -208,15 +229,76 @@ def plan_run(args) -> Plan:
     return Plan(spec, horizon, resume_path, notes)
 
 
+class PackStream:
+    """``--data-dir``: the pack's ``StreamingLoader`` (seeded by
+    ``--seed``), read during each ``train`` call through a
+    ``--prefetch``-deep ``PrefetchIterator`` that stages every batch on
+    the run's device, or placed on the training thread with
+    ``--prefetch 0``.  ``state`` is the cursor of the next batch training
+    consumes, whatever the worker has read ahead; after a ``train`` call
+    the loader is left at that cursor."""
+
+    def __init__(self, args, cfg, device: torch.device):
+        source = DiskShardedSource(args.data_dir)
+        v = source.meta.get("vocab_size")
+        if v is not None and v != cfg.vocab_size:
+            raise SystemExit(f"--data-dir vocab_size {v} != model vocab "
+                             f"{cfg.vocab_size} ({cfg.name})")
+        self.seq = int(source.meta.get("seq_len", args.seq))
+        self.loader = StreamingLoader(source, args.batch, seed=args.seed)
+        self.depth = args.prefetch
+        # one side stream and pinned ring for the run: depth batches
+        # queued, one in the consumer's hands, one being staged
+        self.place = HostToDevice(device, slots=max(self.depth, 0) + 2)
+        self.prefetcher: Optional[PrefetchIterator] = None
+
+    @property
+    def state(self) -> LoaderState:
+        return (self.prefetcher or self.loader).state
+
+    def seek(self, state: LoaderState) -> None:
+        self.loader.seek(state)
+
+    def start(self):
+        """The batch iterator of one ``train`` call."""
+        if self.depth > 0:
+            self.prefetcher = PrefetchIterator(self.loader, self.depth,
+                                               self.place)
+            return self.prefetcher
+        return (self.place(b).wait() for b in self.loader)
+
+    def stop(self) -> None:
+        """Join the prefetch worker (re-raising its failure) and seek the
+        loader back to the cursor training reached."""
+        pf, self.prefetcher = self.prefetcher, None
+        if pf is not None:
+            try:
+                pf.close()
+            finally:
+                self.loader.seek(pf.state)
+
+    def close(self) -> None:
+        self.stop()
+        self.loader.close()
+
+
 @dataclasses.dataclass
 class Run:
-    """What ``build`` sets up: the step function, the state, the data."""
+    """What ``build`` sets up: the step function, the state, the data
+    (``SyntheticLM``, read by ``batch_at``, or a ``PackStream``) and the
+    sequence length its batches have."""
     cfg: Any
     opt: Any
     state: TrainState
     step: Any
-    data: SyntheticLM
+    data: Union[SyntheticLM, PackStream]
     n_params: int
+    seq: int
+
+    def loader_state(self) -> Optional[LoaderState]:
+        """The cursor a checkpoint saves: the next batch training will
+        consume (None for ``SyntheticLM``, which needs none)."""
+        return self.data.state if isinstance(self.data, PackStream) else None
 
 
 def build(args, spec: Optional[OptimizerSpec] = None) -> Run:
@@ -227,6 +309,13 @@ def build(args, spec: Optional[OptimizerSpec] = None) -> Run:
     if args.reduced:
         cfg = smoke_variant(cfg)
     rt = make_runtime(args.device, remat=not args.reduced)
+    if args.data_dir:
+        data = PackStream(args, cfg, rt.device)
+        seq = data.seq
+    else:
+        data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed,
+                           branching=4, device=rt.device)
+        seq = args.seq
     defs = model_defs(cfg)
     params = materialize(defs, prng.PRNGKey(args.seed), rt.device)
     if spec is None:
@@ -235,9 +324,7 @@ def build(args, spec: Optional[OptimizerSpec] = None) -> Run:
     state = opt.init_state(params)
     del params
     step = make_train_step(cfg, rt, opt, n_micro=args.n_micro)
-    data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed,
-                       branching=4, device=rt.device)
-    return Run(cfg, opt, state, step, data, count(defs))
+    return Run(cfg, opt, state, step, data, count(defs), seq)
 
 
 def _restore(path: str, params, state):
@@ -271,21 +358,33 @@ def _restore(path: str, params, state):
 
 
 def resume(run: Run, path: str) -> int:
-    """Restore ``run.state`` from the checkpoint at ``path``; returns the
-    step to continue from."""
+    """Restore ``run.state`` from the checkpoint at ``path``, and seek a
+    ``--data-dir`` stream to its ``loader_state``; returns the step to
+    continue from."""
     restored, start = _restore(path, run.state.params_view,
                                run.state.opt_state)
     run.state = TrainState.wrap(restored["params"], restored["opt"])
+    if isinstance(run.data, PackStream):
+        ls = load_loader_state(path)
+        if ls is None:
+            print("[train] WARNING: checkpoint carries no loader_state; "
+                  "the data stream restarts from the beginning")
+        else:
+            run.data.seek(LoaderState.from_dict(ls))
     return start
 
 
 class Saves:
     """``--ckpt``, ``--save-every``, ``--keep-last-n``, ``--async-save``:
     the periodic step hook and the final save, as the JAX launcher makes
-    them.  Each save holds the live state's pytree form."""
+    them.  Each save holds the live state's pytree form and what
+    ``loader_state()`` returns then (``Run.loader_state``: the cursor of
+    the next batch training consumes, or None)."""
 
-    def __init__(self, args, plan: Plan):
+    def __init__(self, args, plan: Plan,
+                 loader_state: Callable[[], Optional[LoaderState]] = lambda: None):
         self.args, self.plan = args, plan
+        self.loader_state = loader_state
         self.saver = (AsyncCheckpointer() if (args.ckpt and args.async_save)
                       else None)
         self.step_hook = None
@@ -308,13 +407,13 @@ class Saves:
     def save_step(self, step_no: int, state: TrainState):
         tree = {"params": state.params_view, "opt": state.opt_state}
         # keep_last_n=0 still maintains the latest/best symlinks
+        kw = dict(loader_state=self.loader_state(),
+                  keep_last_n=self.args.keep_last_n)
         dest = step_dir(self.args.ckpt, step_no)
         if self.saver is not None:
-            self.saver.save(dest, tree, step_no,
-                            keep_last_n=self.args.keep_last_n)
+            self.saver.save(dest, tree, step_no, **kw)
         else:
-            save_checkpoint(dest, tree, step_no,
-                            keep_last_n=self.args.keep_last_n)
+            save_checkpoint(dest, tree, step_no, **kw)
 
     def _hook(self, t: int, state: TrainState):
         if (t + 1) % self.args.save_every == 0:
@@ -339,7 +438,8 @@ class Saves:
             else:
                 save_checkpoint(args.ckpt, {"params": state.params_view,
                                             "opt": state.opt_state},
-                                step=final_step)
+                                step=final_step,
+                                loader_state=self.loader_state())
             self.write_meta()
             print(f"[train] checkpoint -> {args.ckpt}")
         if self.saver is not None:
@@ -355,16 +455,32 @@ def fmt(t, m):
 
 def train(args, run: Run, start: int = 0, step_hook=None):
     """Run steps ``start`` to ``args.steps``; returns (final state,
-    MemoryTracker)."""
+    MemoryTracker).  A ``--data-dir`` run reads its stream from where
+    ``run.data`` stands, prints the input-stall line under prefetch, and
+    joins the prefetch worker before it returns or raises."""
     mem = MemoryTracker()
     backends = [mem, StdoutTracker(every=args.log_every, fmt=fmt)]
     if args.metrics_jsonl:
         backends.append(JsonlTracker(args.metrics_jsonl))
-    state = run_steps(run.step, run.state, run.data.batch_at, args.steps,
-                      start=start, tracker=CompositeTracker(backends),
-                      log_every=args.log_every,
-                      callbacks=[StepTimer(tokens_per_step=args.batch * args.seq)],
-                      step_hook=step_hook)
+    callbacks = [StepTimer(tokens_per_step=args.batch * run.seq)]
+    pack = isinstance(run.data, PackStream)
+    batches = run.data.start() if pack else run.data.batch_at
+    pf = run.data.prefetcher if pack else None
+    if pf is not None:
+        callbacks.append(PrefetchMonitor(pf))
+    try:
+        state = run_steps(run.step, run.state, batches, args.steps,
+                          start=start, tracker=CompositeTracker(backends),
+                          log_every=args.log_every, callbacks=callbacks,
+                          step_hook=step_hook)
+    finally:
+        if pack:
+            run.data.stop()
+    if pf is not None:
+        c = pf.counters()
+        print(f"[train] input stall "
+              f"{c['input_stall_s_per_step'] * 1e3:.2f} ms/step, "
+              f"prefetch depth avg {c['prefetch_depth_avg']:.2f}")
     return state, mem
 
 
@@ -380,9 +496,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List[float]:
     if args.resume:
         start = resume(run, plan.resume_path)
         print(f"[train] resumed {plan.resume_path} at step {start}")
-    saves = Saves(args, plan)
-    state, mem = train(args, run, start, saves.step_hook)
-    saves.finish(state, start)
+    saves = Saves(args, plan, run.loader_state)
+    try:
+        state, mem = train(args, run, start, saves.step_hook)
+        saves.finish(state, start)
+    finally:
+        if isinstance(run.data, PackStream):
+            run.data.close()
     return mem.series("loss")
 
 

@@ -1,6 +1,6 @@
 """Callback layer over the tracker: buffered per-step logging plus
-derived metrics (wall clock, throughput).  The part of
-``repro.tracker.callbacks`` the training loop uses.
+derived metrics (wall clock, throughput, input-pipeline health).  The
+part of ``repro.tracker.callbacks`` the training loop uses.
 
 The train step leaves its stats as 0-dim tensors on the device; reading
 them every step would wait for the device.  ``MetricsBuffer`` keeps them
@@ -19,7 +19,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.tracker import NullTracker, Tracker, scalarize
 
-__all__ = ["Callback", "StepTimer", "MetricsBuffer", "CallbackRunner"]
+__all__ = ["Callback", "StepTimer", "PrefetchMonitor", "MetricsBuffer",
+           "CallbackRunner"]
 
 
 class Callback:
@@ -68,6 +69,36 @@ class StepTimer(Callback):
         if self.tokens_per_step:
             out["tokens_per_s"] = self.tokens_per_step * self.n_steps / elapsed
         return out
+
+
+class PrefetchMonitor(Callback):
+    """Input-pipeline health metrics from a
+    ``repro_torch.data.PrefetchIterator`` (or anything exposing its
+    ``stall_log``/``counters()`` surface).
+
+    Per step: ``input_stall_s`` (time the step blocked waiting for a
+    batch) and ``prefetch_depth`` (queue occupancy when the batch was
+    taken).  The prefetcher appends one ``stall_log`` entry per consumed
+    batch in order, and the runner flushes records in step order, so
+    popping left keeps the pairing exact even though flushes are
+    deferred.  ``on_end``: run-level ``input_stall_s`` total,
+    ``input_stall_s_per_step`` and ``prefetch_depth_avg``."""
+
+    def __init__(self, prefetcher) -> None:
+        self.prefetcher = prefetcher
+
+    def on_step(self, step, metrics):
+        log = getattr(self.prefetcher, "stall_log", None)
+        if not log:
+            return None
+        stall, depth = log.popleft()
+        return {"input_stall_s": stall, "prefetch_depth": depth}
+
+    def on_end(self):
+        c = self.prefetcher.counters()
+        return {"input_stall_s": c["input_stall_s"],
+                "input_stall_s_per_step": c["input_stall_s_per_step"],
+                "prefetch_depth_avg": c["prefetch_depth_avg"]}
 
 
 class MetricsBuffer:

@@ -14,7 +14,15 @@ gemma-2b smoke on the CPU, torch at 2 threads.  Held:
     is bitwise what JAX saved, the saved optimizer spec and horizon are
     adopted, and the lr of every resumed step is the JAX schedule's
     (later losses are not held: the smoke run is chaotic, ROADMAP C1);
-  * the JAX launcher resumes the port's checkpoint.
+  * the JAX launcher resumes the port's checkpoint;
+  * ``--data-dir``: a ``--prefetch 2 --save-every 2 --async-save`` run
+    split by ``--resume`` (resumed with prefetch or without) prints the
+    uninterrupted run's step lines bitwise, and every checkpoint's
+    ``loader_state`` is the host loader's cursor after that many batches
+    (the prefetcher's, never the loader's run-ahead position);
+  * a ``--data-dir`` checkpoint of either launcher resumes in the other:
+    the resumed stream stands at the saved cursor, and its next batch is
+    bitwise the other package's loader's batch from there.
 """
 import contextlib
 import io
@@ -28,8 +36,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp
+import repro.data as jdata
 import repro.launch.train as jax_launcher
+from repro.checkpoint import load_loader_state as jax_load_loader_state
 from repro.core import schedules as JS
+from repro_torch import data as tdata
 from repro_torch.checkpoint import io as tio
 from repro_torch.core import optim as topt
 from repro_torch.launch import train as launcher
@@ -142,3 +153,102 @@ def test_jax_launcher_resumes_a_port_checkpoint(tmp_path):
     assert f"[train] resumed {ck} at step 2" in text
     assert len(lines) == 1 and lines[0].startswith("  step     2 ")
     assert "lr=0.0047" in lines[0]
+
+
+# ------------------------------------------------------------ --data-dir
+
+def _pack(tmp_path, vocab=1024, seq=16):
+    """A JAX-written synthetic-LM pack at the smoke model's vocab: 64
+    examples in 4 shards, 16 batches of 4 an epoch."""
+    src = jdata.SyntheticLM(vocab, seq, 1, epoch_examples=64, n_shards=4)
+    path = str(tmp_path / "ds")
+    with jdata.DataPackWriter(path, shard_size=16,
+                              meta={"vocab_size": vocab, "seq_len": seq}) as w:
+        for s in range(4):
+            w.add(src.read(s, 0, 16))
+    return path
+
+
+def _host_states(path, n):
+    """The port's host loader cursor after 0..n batches (batch 4, seed 0)."""
+    lo = tdata.StreamingLoader(tdata.DiskShardedSource(path), 4, seed=0)
+    states = [lo.state.to_dict()]
+    for _ in range(n):
+        next(lo)
+        states.append(lo.state.to_dict())
+    return states
+
+
+def _same_batch(jb, tb):
+    assert sorted(jb) == sorted(tb)
+    for k in jb:
+        np.testing.assert_array_equal(np.asarray(jb[k]), tb[k].numpy(), err_msg=k)
+
+
+@pytest.mark.parametrize("resume_prefetch", ["2", "0"])
+def test_data_dir_split_run_prints_the_uninterrupted_lines(resume_prefetch,
+                                                           tmp_path):
+    ds = _pack(tmp_path)
+    flags = RUNS["sngm"] + ["--fused", "multi_tensor", "--total-steps", "8",
+                            "--data-dir", ds, "--seq", "99"]
+    full, text = port(flags + ["--steps", "8", "--prefetch", "2"])
+    assert len(full) == 8 and "[train] input stall" in text
+    base = str(tmp_path / "ck")
+    first, _ = port(flags + ["--steps", "4", "--prefetch", "2", "--ckpt", base,
+                             "--save-every", "2", "--keep-last-n", "2",
+                             "--async-save"])
+    assert first == full[:4]
+    states = _host_states(ds, 8)
+    for step in (2, 4):
+        assert tio.load_loader_state(os.path.join(
+            base, f"step_{step:08d}")) == states[step]
+    resumed, text = port(flags + ["--steps", "8", "--prefetch", resume_prefetch,
+                                  "--ckpt", base, "--resume"])
+    assert f"resumed {os.path.join(base, 'step_00000004')} at step 4" in text
+    assert resumed == full[4:]
+    assert os.readlink(os.path.join(base, "latest")) == "step_00000008"
+    assert tio.load_loader_state(os.path.join(base, "step_00000008")) == states[8]
+
+
+def test_port_resumes_a_jax_data_dir_checkpoint(tmp_path):
+    ds = _pack(tmp_path)
+    ck = str(tmp_path / "ck")
+    run(jax_launcher.main, BASE + ["--optimizer", "sngm", "--steps", "3",
+                                   "--total-steps", "5", "--data-dir", ds,
+                                   "--ckpt", ck])
+    saved = jax_load_loader_state(ck)
+    assert saved == _host_states(ds, 3)[3]
+    args = launcher.parse_args(BASE + ["--device", "cpu", "--steps", "5",
+                                       "--data-dir", ds, "--ckpt", ck,
+                                       "--resume"])
+    plan = launcher.plan_run(args)
+    r = launcher.build(args, plan.spec)
+    assert launcher.resume(r, plan.resume_path) == 3
+    assert r.data.state.to_dict() == saved
+    want = jdata.StreamingLoader(jdata.DiskShardedSource(ds), 4,
+                                 state=jdata.LoaderState.from_dict(saved))
+    it = r.data.start()
+    for _ in range(2):
+        _same_batch(next(want), next(it))
+    r.data.close()
+
+
+def test_jax_launcher_resumes_a_port_data_dir_checkpoint(tmp_path):
+    ds = _pack(tmp_path)
+    ck = str(tmp_path / "ck")
+    port(RUNS["sngm"] + ["--fused", "multi_tensor", "--steps", "3",
+                         "--total-steps", "5", "--data-dir", ds, "--ckpt", ck])
+    saved = tio.load_loader_state(ck)
+    assert saved == _host_states(ds, 3)[3]
+    jl = jdata.StreamingLoader(jdata.DiskShardedSource(ds), 4,
+                               state=jdata.LoaderState.from_dict(saved))
+    assert jl.state.to_dict() == saved
+    tl = tdata.StreamingLoader(tdata.DiskShardedSource(ds), 4,
+                               state=tdata.LoaderState.from_dict(saved))
+    for _ in range(2):
+        _same_batch(next(jl), next(tl))
+    lines, text = run(jax_launcher.main, BASE + ["--steps", "5", "--data-dir",
+                                                 ds, "--ckpt", ck, "--resume"])
+    assert f"[train] resumed {ck} at step 3" in text
+    assert [l[:13] for l in lines] == ["  step     3 ", "  step     4 "]
+    assert jax_load_loader_state(ck) == _host_states(ds, 5)[5]
