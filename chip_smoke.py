@@ -13,9 +13,11 @@ through ``fused_update``'s deferred apply), every optimizer pass a
 hand-written CUDA kernel; a save and resume of SNGM and LAMB training
 on the engine; and the RMSNorm and flash attention op entry points,
 each a hand-written CUDA kernel; and training from a packed dataset on
-disk through the streaming loader and host-to-device prefetch.  Holds
-every kernel (11 rows:
-the deferred apply has its own) against its plain PyTorch version.
+disk through the streaming loader and host-to-device prefetch; and the
+paper's own experiments: the Fig. 1 / Table 2 convnet and the Table 3
+LM proxy through the port's training loops, on the engine.  Holds every
+kernel (11 rows: the deferred apply has its own) against its plain
+PyTorch version.
 
     python3 chip_smoke.py
 
@@ -167,7 +169,29 @@ Phases, each raising on failure:
      repeat); logged per step: the input stall, the prefetch depth and
      the step time, and once the host-to-device copy of one batch (its
      bytes, timed with events on the training stream);
- 20. one JSON line of kernel timings against their bounds (11 rows;
+ 20. the paper's convnet (width 32, 545,098 fp32 params in 8 leaves,
+     ``synthetic_images`` 4096 train and 1024 test) through
+     ``repro_torch.training.loops``: (a) SNGM, MSGD, LARS and LAMB on the
+     engine against ``fused=None`` from one state on the same gradient
+     tensors, 3 steps, bitwise (params, slots, stats, sign of zero), and
+     each one's optimizer step timed; (b) ``train_convnet`` at B 1024 in
+     8 micro-batches of 128 for 3 steps with each of them, the launch
+     counts set to 0 just before and read just after (SNGM and MSGD 1
+     ``chunk_sumsq`` + 1 ``fused_update`` a step, LARS 2 + 1, LAMB 1
+     ``adam_update`` + 1 ``scale_apply``), the call counts
+     (``count_kernel_calls``) equal to them, and the port's counters
+     (``engine_counters``, ``plan_launches_per_step``, the resident
+     ``param_bytes_live`` 1x) equal to the counts read; (c) SNGM's first 3
+     losses on the card against the same call on the CPU (step 0 within
+     1e-5 relative, steps 1-2 within 1e-4); (d) the five Table 2 jobs of
+     ``benchmarks/bench_table2_cifar_proxy.py`` on the engine (16 epochs,
+     B 64 and 1024) and SNGM at B 1024 with ghost batch norm (128):
+     final loss, test accuracy, examples/s and median step time,
+     reported, not asserted; one profiled SNGM run (the device's busy
+     share); (e) ``train_lm`` at the Table 3 proxy config (deepseek-7b
+     smoke, vocab 256, fp32), SNGM on the engine, B 256 x seq 64 in 16
+     micro-batches, 5 steps: 1 + 1 launches a step, tokens/s;
+ 21. one JSON line of kernel timings against their bounds (11 rows;
      flash attention's row is the bf16 gemma-2b prefill), then the JSON
      result line.
 
@@ -180,6 +204,7 @@ device spin before the start event, so the host's enqueue (logged as
     python3 chip_smoke.py --chains-only # phases 1 and 15-17: the chains
     python3 chip_smoke.py --ckpt-only   # phases 1 and 18: checkpoints, resume
     python3 chip_smoke.py --data-only   # phases 1 and 19, with the pack
+    python3 chip_smoke.py --convnet-only  # phases 1 and 20: the paper's convnet
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -2206,6 +2231,357 @@ def phase_data(torch, kernels, train_mod, pack):
 
 
 # ---------------------------------------------------------------------------
+# phase 20: the paper's convnet (Fig. 1 / Table 2) and the two training
+# loops of its benches, on the engine
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_table2_cifar_proxy.py: 4096 train and 1024 test images,
+# 16 epochs, B 64 and 1024, micro-batches of 128
+CONVNET_TRAIN, CONVNET_TEST, CONVNET_EPOCHS = 4096, 1024, 16
+B_SMALL, B_LARGE, ACCUM_MICRO, GHOST = 64, 1024, 128, 128
+CONVNET_PARAMS, CONVNET_LEAVES = 545_098, 8
+CONVNET_STEPS = 3                  # phases 20b and 20c
+CARD_CPU_STEP0_REL = 1e-5          # the card's first loss against the CPU's
+CARD_CPU_REL = 1e-4                # steps 1-2 (a few fp32 ulps, grown by a step)
+# phase 20b: launches a step on the convnet path, each optimizer on the engine
+CONVNET_LAUNCHES = {"sngm": {"chunk_sumsq": 1, "fused_update": 1},
+                    "msgd": {"chunk_sumsq": 1, "fused_update": 1},
+                    "lars": {"chunk_sumsq": 2, "fused_update": 1},
+                    "lamb": {"adam_update": 1, "scale_apply": 1}}
+# benchmarks/bench_table3_lm_proxy.py: SNGM at B 256, seq 64, 16 micro-batches
+LM_BATCH, LM_SEQ, LM_MICRO, LM_STEPS = 256, 64, 16, 5
+LM_BUDGET = 64 * 64 * 160
+
+
+def convnet_optimizer(name, fused, steps):
+    """``name`` with its Table 2 hyperparameters at B 1024 over ``steps``
+    (lamb, which Table 2 lacks: lr 0.01, wd 1e-4, poly power)."""
+    from repro_torch.core import lamb, lars, msgd, sngm
+    from repro_torch.core.schedules import poly_power, step_decay
+    if name == "sngm":
+        return sngm(poly_power(0.2, steps, 1.1), beta=0.9, weight_decay=1e-4,
+                    fused=fused)
+    if name == "msgd":
+        return msgd(step_decay(0.4, [int(steps * .6), int(steps * .85)]),
+                    beta=0.9, weight_decay=1e-4, fused=fused)
+    if name == "lars":
+        return lars(poly_power(4.0, steps, 1.1), beta=0.9, weight_decay=1e-4,
+                    trust=0.01, fused=fused)
+    return lamb(poly_power(0.01, steps, 1.1), weight_decay=1e-4, fused=fused)
+
+
+def table2_jobs(steps_small, steps_large):
+    """benchmarks/bench_table2_cifar_proxy.py's five jobs on the engine,
+    and SNGM at B 1024 with ghost batch norm: (name, batch, optimizer,
+    steps, ghost_batch)."""
+    from repro_torch.core import lars, msgd
+    from repro_torch.core.schedules import poly_power, step_decay, warmup
+    f = "multi_tensor"
+    large = lambda name: convnet_optimizer(name, f, steps_large)   # noqa: E731
+    return [
+        ("msgd_small", B_SMALL,
+         msgd(step_decay(0.05, [int(steps_small * .6), int(steps_small * .85)]),
+              beta=0.9, weight_decay=1e-4, fused=f), steps_small, None),
+        ("msgd_large", B_LARGE, large("msgd"), steps_large, None),
+        ("lars_large", B_LARGE, large("lars"), steps_large, None),
+        ("lars_large_warmup", B_LARGE,
+         lars(warmup(poly_power(6.0, steps_large, 2.0), max(steps_large // 8, 1),
+                     0.4), beta=0.9, weight_decay=1e-4, trust=0.01, fused=f),
+         steps_large, None),
+        ("sngm_large", B_LARGE, large("sngm"), steps_large, None),
+        (f"sngm_large_ghost{GHOST}", B_LARGE, large("sngm"), steps_large, GHOST),
+    ]
+
+
+def convnet_grads(torch, ts, x, y, batch, seed=0):
+    """One global batch's accumulated gradients on ``ts`` (micro-batches
+    of ACCUM_MICRO, as ``train_convnet`` takes them): ``FlatGrads`` on a
+    resident state."""
+    from repro_torch.models.convnet import ce_loss
+    from repro_torch.training.step import _grad_leaves, _mean_grads
+    idx = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, x.shape[0], size=(batch,))).to(x.device)
+    params, flat = _grad_leaves(ts)
+    n_micro = batch // ACCUM_MICRO
+    for m in range(n_micro):
+        sl = idx[m * ACCUM_MICRO:(m + 1) * ACCUM_MICRO]
+        ce_loss(params, x[sl], y[sl]).backward()
+    return _mean_grads(params, flat, n_micro)
+
+
+def phase_convnet_vs_plain(torch, data):
+    """20a: each optimizer on the engine against ``fused=None`` from one
+    state on the same gradient tensors, 3 steps, bitwise (params, slots,
+    stats, sign of zero included); then each one's optimizer step timed
+    on those gradients, engine and plain."""
+    from repro_torch.models.convnet import init_convnet
+    from repro_torch.tracker.counters import param_bytes_live
+    x, y = data[0], data[1]
+    params = init_convnet(0, device="cuda")
+    n = sum(v.numel() for v in params.values())
+    if n != CONVNET_PARAMS or len(params) != CONVNET_LEAVES:
+        raise AssertionError(f"convnet: {n} params in {len(params)} leaves")
+    probe = convnet_optimizer("sngm", "multi_tensor", 64)
+    grads = convnet_grads(torch, probe.init_state(params), x, y, B_LARGE)
+    opt_ms = {}
+    for name in CONVNET_LAUNCHES:
+        opts = [convnet_optimizer(name, f, 64) for f in (None, "multi_tensor")]
+        states = [o.init_state({k: v.clone() for k, v in params.items()})
+                  for o in opts]
+        live = param_bytes_live(states[1])
+        for t in range(3):
+            outs = [opts[0].step_state(grads.tree, states[0]),
+                    opts[1].step_state(grads, states[1])]
+            states = [s for s, _ in outs]
+            sa, sb = (st for _, st in outs)
+            pa, pb = (s.params_view for s in states)
+            same = (all(same_bits(torch, sa[k], sb[k]) for k in sa)
+                    and all(same_bits(torch, pa[k], pb[k]) for k in pa)
+                    and all(same_bits(torch, ua[k], ub[k])
+                            for ua, ub in zip(*map(opt_slots, states))
+                            for k in ua))
+            if not same:
+                raise AssertionError(f"convnet {name} step {t}: fused=None and "
+                                     f"multi_tensor differ")
+        holders = [{"s": s} for s in states]
+
+        def stepper(o, h, g):
+            def step():
+                h["s"], _ = o.step_state(g, h["s"])
+            return step
+        plain_ms = time_calls(torch, stepper(opts[0], holders[0], grads.tree), n=20)
+        engine_ms = time_calls(torch, stepper(opts[1], holders[1], grads), n=20)
+        host_ms = wall_ms(torch, stepper(opts[1], holders[1], grads))
+        opt_ms[name] = engine_ms
+        log(f"convnet {name}: engine equals fused=None bitwise over 3 steps on "
+            f"the same gradients (params, slots, stats); optimizer step on the "
+            f"device {engine_ms:.4f} ms engine, {plain_ms:.4f} ms plain; the "
+            f"engine's step {host_ms:.4f} ms on the host's clock (synchronized); "
+            f"resident param bytes {live:,} = "
+            f"{live / (4 * CONVNET_PARAMS):.4f}x the raw fp32 bytes")
+        del states, outs, holders
+    log(f"20a: convnet {CONVNET_PARAMS:,} fp32 params in {CONVNET_LEAVES} "
+        f"leaves; SNGM, MSGD, LARS and LAMB on the engine bitwise fused=None")
+    return opt_ms
+
+
+def wall_ms(torch, fn, n=20):
+    """Median host ms of ``fn()`` with the card synchronized after each."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_convnet_launches(torch, kernels, data):
+    """20b: ``train_convnet`` at B 1024 in 8 micro-batches for 3 steps on
+    the engine, each optimizer's run with the launch counts set to 0 just
+    before and read just after, the call counts beside them; the port's
+    counters (``engine_counters``, ``plan_launches_per_step``) against
+    the counts read, and the resident state's live param bytes (1x)."""
+    from repro_torch.kernels import count_kernel_calls
+    from repro_torch.models.convnet import init_convnet
+    from repro_torch.tracker import MemoryTracker
+    from repro_torch.tracker.counters import (engine_counters,
+                                              param_bytes_live,
+                                              plan_launches_per_step)
+    from repro_torch.training import train_convnet
+    out = {}
+    for name, per_step in CONVNET_LAUNCHES.items():
+        opt = convnet_optimizer(name, "multi_tensor", 64)
+        mem = MemoryTracker()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with count_kernel_calls() as calls:
+            r = train_convnet(opt, *data, B_LARGE, CONVNET_STEPS,
+                              accum_micro=ACCUM_MICRO, tracker=mem, device="cuda")
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        want = {k: per_step.get(k, 0) * CONVNET_STEPS for k in OPT_KERNELS}
+        if {k: launches[k] for k in OPT_KERNELS} != want:
+            raise AssertionError(f"convnet {name}: launches {launches}, want {want}")
+        if calls["calls"] != launches:
+            raise AssertionError(f"convnet {name}: calls {calls['calls']} against "
+                                 f"launches {launches}")
+        if not all(np.isfinite(r["losses"])) or len(r["losses"]) != CONVNET_STEPS:
+            raise AssertionError(f"convnet {name}: losses {r['losses']}")
+        params = init_convnet(0, device="cuda")
+        counters = engine_counters(opt, params)
+        plan = plan_launches_per_step(opt, params)
+        n_step = sum(per_step.values())
+        if counters["launches_per_step"] != n_step or plan != n_step:
+            raise AssertionError(f"convnet {name}: counters {counters}, plan "
+                                 f"{plan}, launches a step {n_step}")
+        ts = opt.init_state(params)
+        flat_bytes = sum(f.numel() * f.element_size() for f in ts.opt_state.p_flats)
+        if not (ts.params is None and counters["param_bytes_live"]
+                == param_bytes_live(ts) == flat_bytes < 2 * 4 * CONVNET_PARAMS):
+            raise AssertionError(f"convnet {name}: live param bytes "
+                                 f"{counters['param_bytes_live']}, flat {flat_bytes}")
+        steps = [m["step_time_s"] for _, m in mem.steps]
+        log(f"20b: convnet {name} on the engine, B {B_LARGE} in "
+            f"{B_LARGE // ACCUM_MICRO} micro-batches, {CONVNET_STEPS} steps: "
+            f"launches " + ", ".join(f"{k} {launches[k]}" for k in per_step)
+            + f" (= calls); counters {counters}, plan {plan}; resident param "
+            f"bytes {counters['param_bytes_live']:,} "
+            f"({counters['param_bytes_live'] / (4 * CONVNET_PARAMS):.4f}x raw); "
+            f"losses {', '.join(f'{v:.6f}' for v in r['losses'])}; step times "
+            f"{', '.join(f'{s * 1e3:.2f}' for s in steps)} ms")
+        out[name] = {"launches": {k: launches[k] for k in per_step},
+                     "losses": r["losses"]}
+    return out
+
+
+def phase_convnet_card_vs_cpu(torch, data, card_losses):
+    """20c: the first 3 losses of SNGM-engine ``train_convnet`` at B 1024
+    on the card against the same call on the CPU; and 20b's SNGM run
+    against this one (whether the card repeats itself)."""
+    from repro_torch.training import train_convnet
+    cpu = train_convnet(convnet_optimizer("sngm", "multi_tensor", 64),
+                        *(t.cpu() for t in data), B_LARGE, CONVNET_STEPS,
+                        accum_micro=ACCUM_MICRO, device="cpu")["losses"]
+    card = train_convnet(convnet_optimizer("sngm", "multi_tensor", 64), *data,
+                         B_LARGE, CONVNET_STEPS, accum_micro=ACCUM_MICRO,
+                         device="cuda")["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    repeat = max(abs(a - b) for a, b in zip(card, card_losses))
+    log(f"20c: SNGM convnet losses, card {', '.join(f'{v:.9f}' for v in card)}; "
+        f"CPU {', '.join(f'{v:.9f}' for v in cpu)}; relative differences "
+        f"{', '.join(f'{v:.3e}' for v in rel)} (bounds: step 0 "
+        f"{CARD_CPU_STEP0_REL}, steps 1-2 {CARD_CPU_REL}); two card runs "
+        + ("bitwise equal" if repeat == 0 else f"differ by {repeat:.3e}"))
+    if rel[0] > CARD_CPU_STEP0_REL or max(rel[1:]) > CARD_CPU_REL:
+        raise AssertionError(f"card against CPU: relative differences {rel}")
+    return rel, repeat
+
+
+def phase_convnet_rungs(torch, data):
+    """20d: the Table 2 jobs on the engine and SNGM with ghost batch norm,
+    reported (loss, test accuracy, examples/s, median step time), not
+    asserted beyond a finite first loss."""
+    from repro_torch.tracker import MemoryTracker
+    from repro_torch.training import train_convnet
+    steps_small = CONVNET_EPOCHS * CONVNET_TRAIN // B_SMALL
+    steps_large = CONVNET_EPOCHS * CONVNET_TRAIN // B_LARGE
+    results = {}
+    for name, batch, opt, steps, ghost in table2_jobs(steps_small, steps_large):
+        mem = MemoryTracker()
+        t0 = time.perf_counter()
+        r = train_convnet(opt, *data, batch, steps, accum_micro=ACCUM_MICRO,
+                          tracker=mem, ghost_batch=ghost, device="cuda")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        if not np.isfinite(r["losses"][0]):
+            raise AssertionError(f"{name}: step-0 loss {r['losses'][0]}")
+        step_ms = 1e3 * float(np.median([m["step_time_s"] for _, m in mem.steps[1:]]))
+        results[name] = dict(r, median_step_ms=step_ms)
+        log(f"20d: {name:22s} B {batch:5d} x {len(r['losses'])} steps: final "
+            f"loss {r['final_loss']:.4f}, test acc {r['test_acc']:.4f}, "
+            f"{r['examples_per_s']:.0f} examples/s, median step {step_ms:.3f} ms, "
+            f"run {total:.2f} s{' (diverged)' if r['diverged'] else ''}")
+    s, l = results["msgd_small"], results["msgd_large"]
+    log(f"20d: Fig. 1 drop (MSGD B {B_SMALL} -> {B_LARGE}): test acc "
+        f"{s['test_acc']:.4f} -> {l['test_acc']:.4f}, loss "
+        f"{s['final_loss']:.4f} -> {l['final_loss']:.4f}; Table 2 gaps to "
+        f"msgd_small: " + ", ".join(
+            f"{k} {s['test_acc'] - r['test_acc']:+.4f}" for k, r in results.items()
+            if k != "msgd_small"))
+    return results
+
+
+def profile_convnet(torch, data, steps=8, top=6):
+    """SNGM ``train_convnet`` at B 1024 for 8 steps under torch.profiler:
+    the device's busy share of the call's wall time (set-up included: the
+    weights drawn, the state packed) and the kernels that take the most
+    of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training import train_convnet
+    opt = convnet_optimizer("sngm", "multi_tensor", 64)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_convnet(opt, *data, B_LARGE, steps, accum_micro=ACCUM_MICRO,
+                      device="cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    if busy == 0:
+        log("20d profile: the profiler saw no device time (not measured)")
+        return None
+    log(f"20d profile: SNGM convnet B {B_LARGE}, {steps} steps: {wall:.1f} ms "
+        f"wall (profiler on), device busy {busy:.1f} ms = {100 * busy / wall:.1f} "
+        f"%, idle {100 - 100 * busy / wall:.1f} %; top kernels by device time:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<5d} {e.key[:90]}")
+    return busy / wall
+
+
+def phase_lm_proxy(torch, kernels):
+    """20e: ``train_lm`` at the Table 3 proxy config (deepseek-7b smoke,
+    vocab 256, fp32), SNGM on the engine, B 256, seq 64, 16 micro-batches,
+    5 steps, the launch counts set to 0 just before and read just after."""
+    from repro_torch.configs import ARCHS, smoke_variant
+    from repro_torch.core import sngm
+    from repro_torch.core.schedules import poly_power
+    from repro_torch.training import train_lm
+    cfg = dataclasses.replace(smoke_variant(ARCHS["deepseek-7b"]),
+                              vocab_size=256, compute_dtype="float32")
+    opt = sngm(poly_power(2.0, LM_BUDGET // (LM_BATCH * LM_SEQ), 1.1), beta=0.9,
+               weight_decay=1e-4, fused="multi_tensor")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    r = train_lm(opt, cfg, LM_BATCH, LM_SEQ, LM_STEPS, n_micro=LM_MICRO,
+                 device="cuda")
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = {k: {"chunk_sumsq": LM_STEPS, "fused_update": LM_STEPS}.get(k, 0)
+            for k in OPT_KERNELS}
+    if {k: launches[k] for k in OPT_KERNELS} != want:
+        raise AssertionError(f"train_lm: launches {launches}, want {want}")
+    if not (all(np.isfinite(r["losses"])) and r["tokens_per_s"] > 0):
+        raise AssertionError(f"train_lm: {r}")
+    log(f"20e: train_lm {cfg.name} vocab 256 fp32, SNGM on the engine, B "
+        f"{LM_BATCH} x seq {LM_SEQ} in {LM_MICRO} micro-batches, {LM_STEPS} steps: "
+        f"losses {', '.join(f'{v:.4f}' for v in r['losses'])} (chain entropy "
+        f"{r['optimal_loss']:.4f}); {r['tokens_per_s']:.0f} tokens/s over "
+        f"{r['wall_time_s']:.3f} s; launches chunk_sumsq "
+        f"{launches['chunk_sumsq']}, fused_update {launches['fused_update']}")
+    return r
+
+
+def phase_convnet(torch, kernels):
+    """Phase 20: the convnet path and the LM loop, 20a-20e."""
+    from repro_torch.data import synthetic_images
+    x, y = synthetic_images(CONVNET_TRAIN, seed=0)
+    xt, yt = synthetic_images(CONVNET_TEST, seed=99)
+    data = tuple(t.to("cuda") for t in (x, y, xt, yt))
+    t0 = time.perf_counter()
+    opt_ms = phase_convnet_vs_plain(torch, data)
+    runs = phase_convnet_launches(torch, kernels, data)
+    phase_convnet_card_vs_cpu(torch, data, runs["sngm"]["losses"])
+    t1 = time.perf_counter()
+    results = phase_convnet_rungs(torch, data)
+    profile_convnet(torch, data)
+    t2 = time.perf_counter()
+    phase_lm_proxy(torch, kernels)
+    step_ms = results["sngm_large"]["median_step_ms"]
+    log(f"phase 20: 20a-20c {t1 - t0:.1f} s, 20d {t2 - t1:.1f} s, 20e "
+        f"{time.perf_counter() - t2:.1f} s; at B {B_LARGE} SNGM's optimizer step "
+        f"{opt_ms['sngm']:.4f} ms on the device = "
+        f"{100 * opt_ms['sngm'] / step_ms:.2f} % of a {step_ms:.3f} ms step "
+        f"(sngm_large's median)")
+    return runs, results
+
+
+# ---------------------------------------------------------------------------
 # phases 11-14: RMSNorm and flash attention, the two op entry points
 # ---------------------------------------------------------------------------
 
@@ -2608,6 +2984,10 @@ def main(argv=None) -> int:
     ap.add_argument("--data-only", action="store_true",
                     help="phase 1, the pack and phase 19 only (the data "
                          "pipeline at full width); prints no kernel rows")
+    ap.add_argument("--convnet-only", action="store_true",
+                    help="phases 1 and 20 only (the paper's convnet and the "
+                         "two training loops on the engine); prints no "
+                         "kernel rows")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
@@ -2641,7 +3021,9 @@ def main(argv=None) -> int:
     lars = SimpleNamespace(ops=lars_ops, ref=lars_ref)
     t_start = time.perf_counter()
     libs = {"paged_attention": [ops.SOURCE]}
-    if args.chains_only or args.ckpt_only or args.data_only:
+    if args.convnet_only:
+        libs = {mt_ops.LIB_NAME: [mt_ops.SOURCE]}
+    elif args.chains_only or args.ckpt_only or args.data_only:
         libs[mt_ops.LIB_NAME] = [mt_ops.SOURCE]
     elif not args.paged_only:
         libs.update({mt_ops.LIB_NAME: [mt_ops.SOURCE],
@@ -2664,6 +3046,8 @@ def main(argv=None) -> int:
     elif args.data_only:
         with scratch_pack(get_config(ARCH).vocab_size) as pack:
             phase_data(torch, kernels, train_mod, pack)
+    elif args.convnet_only:
+        phase_convnet(torch, kernels)
     elif not args.ops_only:
         err = phase_kernel(torch, ops, ref)
         rt = make_runtime("cuda")
@@ -2708,10 +3092,13 @@ def main(argv=None) -> int:
         with scratch_pack(cfg.vocab_size) as pack:
             ckpt_phases(torch, kernels, train_mod, pack)
             phase_data(torch, kernels, train_mod, pack)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_convnet(torch, kernels)
         t_train = time.perf_counter()
 
     if not (args.paged_only or args.chains_only or args.ckpt_only
-            or args.data_only):
+            or args.data_only or args.convnet_only):
         phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
         cases = ops_cases(torch)
         outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)

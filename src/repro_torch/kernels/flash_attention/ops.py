@@ -30,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import on_cuda, record_launch
+from repro_torch.kernels import on_cuda, record_call, record_launch
 from repro_torch.kernels.build import Library, build_library
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -114,6 +114,7 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
               kv_blk: int | None = DEFAULT_KV_BLK):
     """q (B, S, H, hd); k/v (B, S, K, hd) with K | H.  Returns (B, S, H,
     hd) in q.dtype."""
+    record_call("flash_attention")
     if not on_cuda(q, "flash_attention"):
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)

@@ -18,7 +18,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.core.multi_tensor import _fold_sum
-from repro_torch.kernels import on_cuda, record_launch
+from repro_torch.kernels import on_cuda, record_call, record_launch
 from repro_torch.kernels.build import Library, build_library
 from repro_torch.kernels.fused_lars.ref import lars_sqnorm_ref, lars_update_ref
 from repro_torch.kernels.fused_sngm.ops import check_leaf, device_scalar
@@ -52,6 +52,7 @@ def _raise_on(lib, err: int, name: str) -> None:
 
 def lars_sqnorm(x: torch.Tensor) -> torch.Tensor:
     """One tensor's (max(1, ceil(n / CHUNK)),) f32 row sums of x^2."""
+    record_call("lars_sqnorm")
     if not on_cuda(x, "lars_sqnorm"):
         return lars_sqnorm_ref(x)
     check_leaf("x", x, _DTYPE_CODES, x)
@@ -73,6 +74,7 @@ def fused_lars_update(w: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
     """One tensor, in place: ``v <- beta*v + lr_local*(g + wd*w)``,
     ``w <- (w - v).to(w.dtype)``.  ``lr_local`` is a 0-dim f32 tensor (on
     the card it stays there: the kernel reads it through its pointer)."""
+    record_call("lars_update")
     if not on_cuda(w, "fused_lars_update"):
         w_new, v_new = lars_update_ref(w, g, v, lr_local, beta=beta, wd=wd)
         w.copy_(w_new)

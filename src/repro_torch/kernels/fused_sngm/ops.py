@@ -19,7 +19,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core.multi_tensor import leaf_order
-from repro_torch.kernels import on_cuda, record_launch
+from repro_torch.kernels import on_cuda, record_call, record_launch
 from repro_torch.kernels.build import Library, build_library
 from repro_torch.kernels.fused_sngm.ref import sngm_update_ref
 
@@ -68,6 +68,7 @@ def fused_sngm_update(p: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
     ``p <- (p - lr*u).to(p.dtype)``.  ``inv_norm`` is a 0-dim f32 tensor
     (on the card it stays there: the kernel reads it through its
     pointer), ``lr`` a 0-dim f32 CPU tensor."""
+    record_call("fused_sngm_update")
     if not on_cuda(p, "fused_sngm_update"):
         p_new, u_new = sngm_update_ref(p, g, u, inv_norm, lr, beta=beta)
         p.copy_(p_new)

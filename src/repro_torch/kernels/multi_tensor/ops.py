@@ -3,7 +3,8 @@
 A CPU tensor runs the plain version (``ref.py``).  A CUDA tensor launches
 the hand-written kernel (``csrc/multi_tensor.cu``, built for sm_90a at
 first use) or raises: there is no fallback on the card.  Each kernel
-launch adds one to ``repro_torch.kernels.LAUNCHES``.
+launch adds one to ``repro_torch.kernels.LAUNCHES``, each call (on either
+device) one to ``CALLS``.
 
 The wrappers keep the TPU kernels' contract (``repro.kernels.
 multi_tensor.kernel``): flat buffers of a TILE multiple of elements, one
@@ -22,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import on_cuda, record_launch
+from repro_torch.kernels import on_cuda, record_call, record_launch
 from repro_torch.kernels.build import Library, build_library
 from repro_torch.kernels.multi_tensor.ref import (CHUNK, TILE,
                                                   adam_update_ref,
@@ -99,6 +100,7 @@ def chunk_sumsq(x: torch.Tensor, p: Optional[torch.Tensor] = None, *,
     """Per-CHUNK-row sum of squares of ``x``, or of ``x + wd*p`` (cast
     after the sum) when ``p`` is given and wd != 0; ``x`` has p's type or
     fp32.  Returns (n/CHUNK,) f32."""
+    record_call("chunk_sumsq")
     if not on_cuda(x, "chunk_sumsq"):
         return chunk_sumsq_ref(x, p, wd=wd)
     decayed = p is not None and wd != 0.0
@@ -141,6 +143,7 @@ def fused_update(p: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
     the call returns ``(out, row sums)``."""
     if apply and out is not None:
         raise ValueError("out is the deferred direction: only with apply=False")
+    record_call("fused_update" if apply else "fused_update_deferred")
     if not on_cuda(p, "fused_update"):
         first, u_new, usq = fused_update_ref(
             p, g, u, a_chunk, c, beta=beta, wd=wd, cast_g_first=cast_g_first,
@@ -193,6 +196,7 @@ def scale_apply(p: torch.Tensor, g: torch.Tensor, a_chunk: torch.Tensor,
     """LAMB's apply over one bucket, in place: ``s = a*g`` per row,
     ``p <- (p - c*s).to(p.dtype)``.  ``g`` is the f32 direction, ``c`` a
     0-dim f32 CPU tensor.  Returns the (n/CHUNK,) f32 row sums of s^2."""
+    record_call("scale_apply")
     if not on_cuda(p, "scale_apply"):
         p_new, ssq = scale_apply_ref(p, g, a_chunk, c)
         p.copy_(p_new)
@@ -225,6 +229,7 @@ def adam_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     and the (n/CHUNK,) f32 row sums of u^2, p^2 and g^2.  ``bc1``/``bc2``
     are 0-dim f32 CPU tensors; ``eps`` must be > 0 so that zero padding
     gives a zero direction."""
+    record_call("adam_update")
     if not on_cuda(p, "adam_update"):
         m_new, v_new, u, usq, psq, gsq = adam_update_ref(
             p, g, m, v, bc1, bc2, b1=b1, b2=b2, eps=eps, wd=wd)

@@ -15,7 +15,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import record_launch
+from repro_torch.kernels import record_call, record_launch
 from repro_torch.kernels.build import Library, build_library
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -137,6 +137,7 @@ def paged_attention(q, kp, vp, bt, pos, *, window: int = 0,
                     softcap: float = 0.0):
     """q (B, H, hd); kp/vp (n_blocks, bs, K, hd) pools; bt (B, nbmax)
     int32; pos (B,) int32.  Returns (B, H, hd) in q.dtype."""
+    record_call(NAME)
     if q.device.type == "cpu":
         return paged_attention_ref(q, kp, vp, bt, pos, window=window,
                                    softcap=softcap)

@@ -19,7 +19,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import on_cuda, record_launch
+from repro_torch.kernels import on_cuda, record_call, record_launch
 from repro_torch.kernels.build import Library, build_library
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -56,6 +56,7 @@ def load_pack(d: int, x: torch.Tensor, scale: torch.Tensor, o: torch.Tensor) -> 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     """x (..., d), scale (d,) -> x's shape and dtype:
     ``x * rsqrt(mean(x**2, -1) + eps) * scale``, fp32 inside."""
+    record_call("rmsnorm")
     if not on_cuda(x, "rmsnorm"):
         return rmsnorm_ref(x, scale, eps)
     d = x.shape[-1] if x.dim() else 0

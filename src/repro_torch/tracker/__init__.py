@@ -15,6 +15,11 @@ use: one interface, several backends, fed host scalars.
   * ``CompositeTracker`` — fan-out to several backends, in order;
   * ``NullTracker``      — the default no-op.
 
+``current_tracker`` / ``set_global_tracker`` / ``with_tracker`` keep an
+ambient tracker, so nested loops can log without a tracker argument
+threaded through every call; explicit arguments still win where they
+exist.
+
 Values may be 0-dim torch tensors on any device: every backend coerces
 through ``scalarize`` at log time (``tracker.callbacks.MetricsBuffer``
 defers that device sync to the logging boundary).
@@ -23,10 +28,12 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List, Tuple
+from contextlib import contextmanager
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 __all__ = ["Tracker", "NullTracker", "MemoryTracker", "StdoutTracker",
-           "JsonlTracker", "CompositeTracker", "scalarize", "read_jsonl"]
+           "JsonlTracker", "CompositeTracker", "scalarize", "read_jsonl",
+           "current_tracker", "set_global_tracker", "with_tracker"]
 
 
 def scalarize(value: Any) -> Any:
@@ -172,3 +179,25 @@ class CompositeTracker(Tracker):
     def finish(self):
         for t in self.trackers:
             t.finish()
+
+
+# the ambient tracker: the innermost ``with_tracker`` block's, else the
+# global one (a NullTracker until ``set_global_tracker``)
+_GLOBAL: List[Tracker] = [NullTracker()]
+
+
+def current_tracker() -> Tracker:
+    return _GLOBAL[-1]
+
+
+def set_global_tracker(tracker: Optional[Tracker]) -> None:
+    _GLOBAL[0] = tracker if tracker is not None else NullTracker()
+
+
+@contextmanager
+def with_tracker(tracker: Tracker) -> Iterator[Tracker]:
+    _GLOBAL.append(tracker)
+    try:
+        yield tracker
+    finally:
+        _GLOBAL.pop()

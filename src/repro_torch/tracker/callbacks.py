@@ -38,14 +38,25 @@ class Callback:
 class StepTimer(Callback):
     """``step_time_s`` (host time between pushes: it includes dispatch,
     not the device's work that the flush waits for), ``it_per_s``
-    (cumulative) and, when known, ``tokens_per_s``.  The first step
-    counts from the loop start, so set-up shows up in step 0."""
+    (cumulative) and, when known, ``tokens_per_s`` / ``examples_per_s``.
+    The first step counts from the loop start, so set-up shows up in
+    step 0."""
 
-    def __init__(self, tokens_per_step: Optional[int] = None) -> None:
+    def __init__(self, tokens_per_step: Optional[int] = None,
+                 examples_per_step: Optional[int] = None) -> None:
         self.tokens_per_step = tokens_per_step
+        self.examples_per_step = examples_per_step
         self.t_start: Optional[float] = None
         self.t_prev: Optional[float] = None
         self.n_steps = 0
+
+    def _rates(self, steps: int, seconds: float) -> Dict[str, float]:
+        out = {}
+        if self.tokens_per_step:
+            out["tokens_per_s"] = self.tokens_per_step * steps / seconds
+        if self.examples_per_step:
+            out["examples_per_s"] = self.examples_per_step * steps / seconds
+        return out
 
     def on_step(self, step, metrics):
         t_wall = metrics.get("_t_wall", time.perf_counter())
@@ -56,19 +67,15 @@ class StepTimer(Callback):
         self.t_prev = t_wall
         self.n_steps += 1
         elapsed = max(t_wall - self.t_start, 1e-9)
-        out = {"step_time_s": dt, "it_per_s": self.n_steps / elapsed}
-        if self.tokens_per_step:
-            out["tokens_per_s"] = self.tokens_per_step / dt
-        return out
+        return {"step_time_s": dt, "it_per_s": self.n_steps / elapsed,
+                **self._rates(1, dt)}
 
     def on_end(self):
         if self.t_start is None:
             return None
         elapsed = max((self.t_prev or self.t_start) - self.t_start, 1e-9)
-        out = {"wall_time_s": elapsed, "it_per_s": self.n_steps / elapsed}
-        if self.tokens_per_step:
-            out["tokens_per_s"] = self.tokens_per_step * self.n_steps / elapsed
-        return out
+        return {"wall_time_s": elapsed, "it_per_s": self.n_steps / elapsed,
+                **self._rates(self.n_steps, elapsed)}
 
 
 class PrefetchMonitor(Callback):

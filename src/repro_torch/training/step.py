@@ -69,6 +69,18 @@ def _grad_leaves(state: TrainState):
     return params, None
 
 
+@torch.no_grad()
+def _mean_grads(params, flat: Optional[FlatGrads], n_micro: int):
+    """The accumulated gradients of ``_grad_leaves`` divided by
+    ``n_micro``: the flat buffers in place, or a new dict."""
+    if flat is not None:
+        for f in flat.flats:
+            f.div_(n_micro)
+        return flat
+    return {k: v.grad / n_micro if n_micro > 1 else v.grad
+            for k, v in params.items()}
+
+
 def make_train_step(cfg: ModelConfig, rt: Runtime, opt: Optimizer,
                     n_micro: int = 1):
     """Returns train_step(state, batch) -> (state', stats) over the unified
@@ -97,13 +109,7 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, opt: Optimizer,
             m_stack.append({k: v.detach() for k, v in metrics.items()})
 
         with torch.no_grad():
-            if flat is not None:
-                for f in flat.flats:
-                    f.div_(n_micro)
-                grads = flat
-            else:
-                grads = {k: v.grad / n_micro if n_micro > 1 else v.grad
-                         for k, v in params.items()}
+            grads = _mean_grads(params, flat, n_micro)
             if n_micro == 1:
                 loss, metrics = losses[0], m_stack[0]
             else:

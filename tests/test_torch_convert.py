@@ -103,7 +103,9 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.convert, "
-            "repro_torch.data, repro_torch.data.pack; "
+            "repro_torch.data, repro_torch.data.pack, "
+            "repro_torch.models.convnet, repro_torch.tracker.counters, "
+            "repro_torch.training.loops; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
