@@ -15,9 +15,10 @@ on the engine; and the RMSNorm and flash attention op entry points,
 each a hand-written CUDA kernel; and training from a packed dataset on
 disk through the streaming loader and host-to-device prefetch; and the
 paper's own experiments: the Fig. 1 / Table 2 convnet and the Table 3
-LM proxy through the port's training loops, on the engine.  Holds every
-kernel (11 rows: the deferred apply has its own) against its plain
-PyTorch version.
+LM proxy through the port's training loops, on the engine; and SNGM
+with EMA shadow parameters (``--ema-decay``) on the engine and through a
+checkpoint.  Holds every kernel (11 rows: the deferred apply has its
+own) against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -191,7 +192,29 @@ Phases, each raising on failure:
      share); (e) ``train_lm`` at the Table 3 proxy config (deepseek-7b
      smoke, vocab 256, fp32), SNGM on the engine, B 256 x seq 64 in 16
      micro-batches, 5 steps: 1 + 1 launches a step, tokens/s;
- 21. one JSON line of kernel timings against their bounds (11 rows;
+ 21. EMA shadow parameters (``sngm(ema_decay=)``, the resident f32
+     ``e_flats`` slots; the advance is plain PyTorch and launches no
+     kernel of the table): (a) full-width gemma-2b through the launcher's
+     functions (phase 9's batch), plain SNGM, SNGM with ``--ema-decay
+     0.999`` and the same with ``--nesterov``, 3 steps each on the
+     engine, the launch counts set to 0 just before each and read just
+     after (1 ``chunk_sumsq`` + 1 ``fused_update`` a step); step time and
+     peak memory with and without EMA; the optimizer step with EMA
+     against plain SNGM's on the same buffers; the EMA advance alone
+     (CUDA events) against its byte bound (e read, p read, e written);
+     (b) the engine against the port's interpreter (``fused=None``) from
+     one state on the same full-width gradients at 2 layers, decay 0.5,
+     fp32 and bf16 params, with and without nesterov, 3 steps: params,
+     momentum, EMA slots and stats bitwise (sign of zero included); (c)
+     one EMA advance on the card against the same call on the CPU, fp32
+     and bf16 params, decay 0.999, 0.99 and 0.5 (two slices of a buffer,
+     signed zeros; and the interpreter's stage): bitwise, which a
+     contracted multiply-add would break; (d) phase 18's round trip for
+     SNGM + EMA at 2 layers through ``Saves`` and ``resume``: saved at
+     step 2, the archive's keys the live state's pytree form, every
+     restored byte (the EMA slots too) bitwise, steps 2-3 within twice the
+     live-live difference (0 if they repeat);
+ 22. one JSON line of kernel timings against their bounds (11 rows;
      flash attention's row is the bf16 gemma-2b prefill), then the JSON
      result line.
 
@@ -205,6 +228,7 @@ device spin before the start event, so the host's enqueue (logged as
     python3 chip_smoke.py --ckpt-only   # phases 1 and 18: checkpoints, resume
     python3 chip_smoke.py --data-only   # phases 1 and 19, with the pack
     python3 chip_smoke.py --convnet-only  # phases 1 and 20: the paper's convnet
+    python3 chip_smoke.py --ema-only    # phases 1 and 21: EMA shadow params
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -1241,7 +1265,7 @@ def phase_train(torch, kernels, train_mod, run_name):
     the launch counts set to 0 just before and read just after: each
     optimizer kernel of the path the expected number of times a step,
     every other one never."""
-    what, flags, steps, per_step = TRAIN_RUNS[run_name]
+    what, flags, steps, per_step = {**TRAIN_RUNS, **EMA_RUNS}[run_name]
     args = train_mod.parse_args(
         ["--arch", ARCH, "--steps", str(steps), "--batch", "8", "--seq", "512",
          "--n-micro", "2", "--weight-decay", "1e-4", "--log-every", "1",
@@ -1781,7 +1805,13 @@ CKPT_RUNS = {
     "lamb": ("LAMB on the engine (lr 0.01)",
              ["--optimizer", "lamb", "--fused", "multi_tensor", "--lr", "0.01"],
              2, {"adam_update": 1, "scale_apply": 1}, False),
+    # phase 21d: a full-width EMA checkpoint would be ~30 GB
+    "sngm_ema": ("SNGM + EMA 0.999 on the engine",
+                 ["--optimizer", "sngm", "--fused", "multi_tensor",
+                  "--ema-decay", "0.999"],
+                 2, {"chunk_sumsq": 1, "fused_update": 1}, False),
 }
+PHASE18_RUNS = ("sngm", "lamb")
 # the resumed steps against the live state's: within this many times the
 # difference between two runs from the live state themselves (0 if the
 # steps repeat), since each pair of runs is a fresh draw of the token
@@ -1803,9 +1833,11 @@ def depth_cut(train_mod, n_layers):
 
 
 def state_buffers(state):
-    """A resident state's flat buffers: params, then its f32 slots."""
+    """A resident state's flat buffers: params, then its f32 slots (EMA
+    shadows last)."""
     o = state.opt_state
-    return list(o.p_flats) + list(o.u_flats) + list(o.m_flats) + list(o.v_flats)
+    return (list(o.p_flats) + list(o.u_flats) + list(o.m_flats)
+            + list(o.v_flats) + [f for e in o.e_flats for f in e])
 
 
 def max_abs_diff(torch, xs, ys, chunk=1 << 26):
@@ -1826,7 +1858,7 @@ def ckpt_layers(name, root, need_x=2.1):
     from repro_torch.models import count, model_defs
     own = CKPT_RUNS[name][2]
     cfg = get_config(ARCH)
-    slots = {"sngm": 1, "lamb": 2}[name]     # momentum / m and v, f32
+    slots = {"sngm": 1, "lamb": 2, "sngm_ema": 2}[name]  # f32 slots a param
 
     def nbytes(n):                 # fp32 params and their f32 slots
         return count(model_defs(dataclasses.replace(cfg, n_layers=n))) * 4 * (1 + slots)
@@ -1887,7 +1919,7 @@ def phase_ckpt(torch, kernels, train_mod, name, root, pack):
     state (launch counts set to 0 just before and read just after) held
     against steps 2-3 from the live state, run twice."""
     from repro_torch.checkpoint import save_checkpoint
-    from repro_torch.checkpoint.io import _flatten
+    from repro_torch.checkpoint.io import _flatten, archive_keys
     from repro_torch.checkpoint import load_loader_state
     what, flags, _, per_step, reads_pack = CKPT_RUNS[name]
     n_layers = ckpt_layers(name, root)
@@ -1963,9 +1995,14 @@ def phase_ckpt(torch, kernels, train_mod, name, root, pack):
     if start != 2 or run_b.state.step != 2 or not plan_b.resume_path.endswith(
             "step_00000002"):
         raise AssertionError(f"resumed {plan_b.resume_path} at {start}")
+    keys = archive_keys(plan_b.resume_path)
+    if keys != set(_flatten({"params": run_b.state.params_view,
+                             "opt": run_b.state.opt_state})):
+        raise AssertionError(f"{what}: the archive's keys are not the live "
+                             f"state's pytree form")
     same = [same_bits(torch, a, b) for a, b in
             zip(state_buffers(state), state_buffers(run_b.state))]
-    if not all(same):
+    if len(same) != len(state_buffers(run_b.state)) or not all(same):
         raise AssertionError(f"{what}: restored buffers differ from the live "
                              f"state at step 2: {same}")
     if run_b.loader_state() != cursor:
@@ -2044,7 +2081,7 @@ def ckpt_phases(torch, kernels, train_mod, pack):
     (ROOT / "build").mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="ckpt_smoke_", dir=ROOT / "build"))
     try:
-        for name in CKPT_RUNS:
+        for name in PHASE18_RUNS:
             phase_ckpt(torch, kernels, train_mod, name, root, pack)
             gc.collect()               # the timed hook's cycle holds the run
             torch.cuda.empty_cache()
@@ -2582,6 +2619,243 @@ def phase_convnet(torch, kernels):
 
 
 # ---------------------------------------------------------------------------
+# phase 21: EMA shadow parameters on the engine
+# ---------------------------------------------------------------------------
+
+EMA_DECAY = 0.999
+EMA_FLAGS = ["--optimizer", "sngm", "--fused", "multi_tensor"]
+SNGM_LAUNCHES = {"chunk_sumsq": 1, "fused_update": 1}
+# (what, launcher flags, steps, kernel launches per step), as TRAIN_RUNS;
+# plain SNGM is the baseline of the step time and the peak memory
+EMA_RUNS = {
+    "sngm_no_ema": ("SNGM on the engine, no EMA", EMA_FLAGS, 3, SNGM_LAUNCHES),
+    "sngm_ema": ("SNGM + EMA 0.999 on the engine",
+                 EMA_FLAGS + ["--ema-decay", str(EMA_DECAY)], 3, SNGM_LAUNCHES),
+    "sngm_ema_nesterov": ("nesterov SNGM + EMA 0.999 on the engine",
+                          EMA_FLAGS + ["--ema-decay", str(EMA_DECAY),
+                                       "--nesterov"], 3, SNGM_LAUNCHES),
+}
+
+
+def ema_step_timing(torch, run, state):
+    """21a: the optimizer step with EMA against plain SNGM's on the same
+    buffers (in turns), each step's transient device memory, and the EMA
+    advance alone against its byte bound (e read, p read, e written)."""
+    from repro_torch.core.multi_tensor import (EMA_SLICE, FlatGrads,
+                                               ema_flats_update, zeros_flats)
+    from repro_torch.core.optim import TrainState, make_optimizer
+    layout = state.opt_state.layout
+    g = zeros_flats(layout, device="cuda")
+    for f in g:
+        f.normal_().mul_(1e-3)
+    grads = FlatGrads(tuple(g), layout)
+    sngm = make_optimizer("sngm", {"name": "poly_power", "kwargs": {
+        "lr0": 1.6, "total_steps": 100}}, weight_decay=1e-4, fused="multi_tensor")
+    as_sngm = TrainState(None, dataclasses.replace(
+        state.opt_state, form="momentum", e_flats=()))
+    holder = {"ema": state, "sngm": as_sngm}
+
+    def step(opt, key):
+        def go():
+            holder[key], _ = opt.step_state(grads, holder[key])
+        return go
+
+    def timed(opt, key):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_calls(torch, step(opt, key), n=5)
+        return ms, (torch.cuda.max_memory_allocated() - base) / 2**30
+    ema_ms, ema_extra = timed(run.opt, "ema")
+    sngm_ms, sngm_extra = timed(sngm, "sngm")
+    ema_ms2, _ = timed(run.opt, "ema")
+    sngm_ms2, _ = timed(sngm, "sngm")
+    e, p = state.opt_state.e_flats[0], state.opt_state.p_flats
+    adv_ms, enq = time_kernel(torch, lambda: ema_flats_update(e, p, EMA_DECAY),
+                              n=10)
+    nbytes = sum(f.numel() * (8 + f.element_size()) for f in p)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"optimizer step with EMA {ema_ms:.2f} / {ema_ms2:.2f} ms against plain "
+        f"SNGM {sngm_ms:.2f} / {sngm_ms2:.2f} ms on the same buffers (in turns), "
+        f"+{ema_ms - sngm_ms:.2f} / +{ema_ms2 - sngm_ms2:.2f} ms; the step's "
+        f"transient device memory {ema_extra:.3f} GiB with EMA, {sngm_extra:.3f} "
+        f"without; the EMA advance alone (plain PyTorch, slices of "
+        f"{EMA_SLICE:,} elements, no kernel of the table) {adv_ms:.3f} ms "
+        f"(host enqueue {enq:.3f} ms) against its bound {bound_ms:.3f} ms "
+        f"({nbytes:,} bytes: e read, p read, e written; "
+        f"{100 * bound_ms / adv_ms:.1f} % of it)")
+    del grads, g, holder, as_sngm
+    return {"opt_ms": (ema_ms, ema_ms2), "sngm_ms": (sngm_ms, sngm_ms2),
+            "advance_ms": adv_ms, "bound_ms": bound_ms}
+
+
+def phase_ema_train(torch, kernels, train_mod):
+    """21a: full-width gemma-2b through the launcher's functions (phase 9's
+    batch), plain SNGM, SNGM + EMA and nesterov SNGM + EMA, 3 steps each,
+    the launch counts set to 0 just before each and read just after (1
+    ``chunk_sumsq`` + 1 ``fused_update`` a step: the advance launches no
+    kernel of the table); step time and peak memory with and without EMA;
+    the shadow finite and f32; then ``ema_step_timing``."""
+    runs = {}
+    for name in EMA_RUNS:
+        run, state, launches, step_s = phase_train(torch, kernels, train_mod, name)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        opt = state.opt_state
+        n_ema = len(opt.e_flats)
+        if n_ema != (0 if name == "sngm_no_ema" else 1):
+            raise AssertionError(f"{name}: {n_ema} EMA slot sets")
+        if not all(f.dtype == torch.float32 and bool(torch.isfinite(f).all())
+                   for es in opt.e_flats for f in es):
+            raise AssertionError(f"{name}: an EMA slot is not f32, or not finite")
+        if n_ema:
+            moved = max(float((e.float() - p.float()).abs().max())
+                        for e, p in zip(opt.e_flats[0], opt.p_flats))
+            log(f"{name} [{run.opt.plan.describe()}]: max |ema - params| "
+                f"after 3 steps {moved:.3e}")
+        runs[name] = {"step_s": step_s, "peak_gib": peak}
+        if name == "sngm_ema":
+            runs[name].update(ema_step_timing(torch, run, state))
+        del run, state, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    base = runs["sngm_no_ema"]
+    log("EMA at full width against plain SNGM: " + "; ".join(
+        f"{name} step {r['step_s']:.3f} s ({100 * (r['step_s'] / base['step_s'] - 1):+.1f} %), "
+        f"peak {r['peak_gib']:.2f} GiB ({r['peak_gib'] - base['peak_gib']:+.2f})"
+        for name, r in runs.items()))
+    return runs
+
+
+def ema_slots(state):
+    """Params, momentum and the EMA shadow of an SNGM + EMA state, as
+    dicts, in either form."""
+    from repro_torch.core import transform as T
+    o = state.opt_state
+    if hasattr(o, "e_flats"):
+        return [state.params_view, o.momentum, o.ema_views[0]]
+    by = {type(s): s for s in o.inner}
+    return [state.params, by[T.TraceState].momentum, by[T.EmaParamsState].ema]
+
+
+def phase_ema_vs_interp(torch, kernels, cfg, n_layers=2, decay=0.5):
+    """21b: SNGM + EMA on the engine against the port's interpreter
+    (``fused=None``) from one state and the same full-width gradients, 3
+    steps, fp32 and bf16 params, with and without nesterov: params,
+    momentum, EMA slots and stats bitwise (sign of zero included), and
+    each engine step's launches the plan's.  Depth cut to 2 layers, as
+    in phases 10 and 17."""
+    from repro_torch import prng
+    from repro_torch.core.optim import make_optimizer
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Runtime, materialize, model_defs
+    from repro_torch.training.step import _grad_leaves, loss_fn
+    sched = {"name": "poly_power", "kwargs": {"lr0": 1.6, "total_steps": 4}}
+    checked = []
+    for param_dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, n_layers=n_layers, param_dtype=param_dtype)
+        params = materialize(model_defs(c), prng.PRNGKey(1), torch.device("cuda"))
+        opt = make_optimizer("sngm", {"name": "constant", "kwargs": {"lr": 0.1}},
+                             fused="multi_tensor")
+        leaves, grads = _grad_leaves(opt.init_state(params))
+        batch = SyntheticLM(c.vocab_size, 512, 2, seed=1,
+                            device=torch.device("cuda")).batch_at(0)
+        loss_fn(leaves, batch, c, Runtime(torch.device("cuda"), remat=True))[0].backward()
+        del leaves
+        for nesterov in (False, True):
+            interp, eng = (make_optimizer("sngm", sched, weight_decay=1e-4,
+                                          nesterov=nesterov, ema_decay=decay,
+                                          fused=f)
+                           for f in (None, "multi_tensor"))
+            a = interp.init_state({k: v.clone() for k, v in params.items()})
+            b = eng.init_state(params)
+            plan_launches = (eng.plan.launches_per_bucket()
+                             * len(b.opt_state.layout.buckets))
+            for t in range(3):
+                a, sa = interp.step_state(grads.tree, a)
+                kernels.reset_launches()
+                b, sb = eng.step_state(grads, b)
+                torch.cuda.synchronize()
+                n = sum(kernels.launch_counts().values())
+                if n != plan_launches:
+                    raise AssertionError(f"nesterov={nesterov} {param_dtype} "
+                                         f"step {t}: {n} launches, the plan "
+                                         f"{plan_launches}")
+                same = all(same_bits(torch, sa[k], sb[k]) for k in sa) and all(
+                    same_bits(torch, x[k], y[k])
+                    for x, y in zip(ema_slots(a), ema_slots(b)) for k in x)
+                if not same:
+                    raise AssertionError(f"SNGM + EMA {decay} nesterov={nesterov} "
+                                         f"{param_dtype} step {t}: the engine "
+                                         f"and the interpreter differ")
+            checked.append(f"{param_dtype}{' nesterov' if nesterov else ''}")
+            del a, b
+            torch.cuda.empty_cache()
+        del params, grads
+    log(f"SNGM + EMA {decay} on the engine equals the port's interpreter bitwise "
+        f"over 3 steps on the same gradients (params, momentum, EMA slots, "
+        f"stats), gemma-2b widths at {n_layers} layers, launches a step the "
+        f"plan's: {', '.join(checked)}")
+
+
+def phase_ema_card_vs_cpu(torch):
+    """21c: one EMA advance on the card against the same call on the CPU
+    from the same inputs, bitwise: the engine's (two slices, the second
+    ragged; signed zeros) and the interpreter stage's, fp32 and bf16
+    params.  A contracted multiply-add would differ in the last bit."""
+    from repro_torch.core import transform as T
+    from repro_torch.core.multi_tensor import EMA_SLICE, ema_flats_update
+    gen = torch.Generator().manual_seed(21)
+    n = EMA_SLICE + 4099
+    done = []
+    for dtype in (torch.float32, torch.bfloat16):
+        e = torch.randn(n, generator=gen)
+        p = torch.randn(n, generator=gen).to(dtype)
+        e[:64], p[:64] = -0.0, -0.0
+        tree = {"a": torch.randn(1000, 7, generator=gen).to(dtype),
+                "b": torch.randn((), generator=gen).to(dtype)}
+        for decay in (0.999, 0.99, 0.5):
+            cpu = ema_flats_update([e.clone()], [p], decay)[0]
+            card = ema_flats_update([e.cuda()], [p.cuda()], decay)[0].cpu()
+            if not same_bits(torch, card, cpu):
+                raise AssertionError(f"EMA advance {dtype} {decay}: card != CPU "
+                                     f"at {int((card != cpu).sum())} elements")
+            stage = T.ema_params(decay)
+            st = stage.init(tree)
+            st_c = stage.init({k: v.cuda() for k, v in tree.items()})
+            moved = {k: (v * 3).to(dtype) for k, v in tree.items()}
+            _, st, _ = stage.update({}, st, moved)
+            _, st_c, _ = stage.update({}, st_c, {k: v.cuda()
+                                                 for k, v in moved.items()})
+            if not all(same_bits(torch, st_c.ema[k].cpu(), st.ema[k]) for k in tree):
+                raise AssertionError(f"ema_params {dtype} {decay}: card != CPU")
+            done.append(f"{str(dtype).rsplit('.', 1)[-1]} {decay}")
+    log(f"one EMA advance on the card equals the CPU's bitwise ({n:,} elements, "
+        f"two slices; the interpreter's stage on a small tree): {', '.join(done)}")
+
+
+def phase_ema(torch, kernels, train_mod, cfg):
+    """Phase 21, 21a-21d; 21d is phase 18's round trip for SNGM + EMA at 2
+    layers, in a git-ignored scratch dir under ``build/``."""
+    t0 = time.perf_counter()
+    runs = phase_ema_train(torch, kernels, train_mod)
+    t1 = time.perf_counter()
+    phase_ema_vs_interp(torch, kernels, cfg)
+    phase_ema_card_vs_cpu(torch)
+    t2 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="ema_ckpt_", dir=ROOT / "build"))
+    try:
+        phase_ckpt(torch, kernels, train_mod, "sngm_ema", root, None)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 21: 21a {t1 - t0:.1f} s, 21b-21c {t2 - t1:.1f} s, 21d "
+        f"{time.perf_counter() - t2:.1f} s")
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # phases 11-14: RMSNorm and flash attention, the two op entry points
 # ---------------------------------------------------------------------------
 
@@ -2988,6 +3262,11 @@ def main(argv=None) -> int:
                     help="phases 1 and 20 only (the paper's convnet and the "
                          "two training loops on the engine); prints no "
                          "kernel rows")
+    ap.add_argument("--ema-only", action="store_true",
+                    help="phases 1 and 21 only (EMA shadow parameters on the "
+                         "engine at full width, against the interpreter and "
+                         "the CPU, and through a checkpoint); prints no "
+                         "kernel rows")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this script; "
@@ -3021,7 +3300,7 @@ def main(argv=None) -> int:
     lars = SimpleNamespace(ops=lars_ops, ref=lars_ref)
     t_start = time.perf_counter()
     libs = {"paged_attention": [ops.SOURCE]}
-    if args.convnet_only:
+    if args.convnet_only or args.ema_only:
         libs = {mt_ops.LIB_NAME: [mt_ops.SOURCE]}
     elif args.chains_only or args.ckpt_only or args.data_only:
         libs[mt_ops.LIB_NAME] = [mt_ops.SOURCE]
@@ -3048,6 +3327,8 @@ def main(argv=None) -> int:
             phase_data(torch, kernels, train_mod, pack)
     elif args.convnet_only:
         phase_convnet(torch, kernels)
+    elif args.ema_only:
+        phase_ema(torch, kernels, train_mod, get_config(ARCH))
     elif not args.ops_only:
         err = phase_kernel(torch, ops, ref)
         rt = make_runtime("cuda")
@@ -3095,10 +3376,11 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_convnet(torch, kernels)
+        phase_ema(torch, kernels, train_mod, cfg)
         t_train = time.perf_counter()
 
     if not (args.paged_only or args.chains_only or args.ckpt_only
-            or args.data_only or args.convnet_only):
+            or args.data_only or args.convnet_only or args.ema_only):
         phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
         cases = ops_cases(torch)
         outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)

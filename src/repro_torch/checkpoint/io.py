@@ -15,9 +15,12 @@ a resident ``FlatOptState`` is saved as its ``OptState`` or
 ``ChainOptState`` (never its flat buffers), and a plain-path
 ``LambState`` as the interpreter's ``ChainOptState``.  So a launcher run
 saves ``params/<a>/<b>``, ``opt/.step``, ``opt/.momentum/<a>/<b>``
-(the momentum kinds), or ``opt/.inner/[0]/.count``,
+(the momentum kinds), ``opt/.inner/[0]/.count``,
 ``opt/.inner/[0]/.m/...``, ``opt/.inner/[0]/.v/...``,
-``opt/.inner/[3]/.count`` (LAMB), exactly as the JAX launcher does.
+``opt/.inner/[3]/.count`` (LAMB), or ``opt/.inner/[2]/.momentum/...``,
+``opt/.inner/[3]/.count``, ``opt/.inner/[4]/.ema/...`` (SNGM with
+``--ema-decay``: the resident ``e_flats`` as the chain's ``ema_params``
+state, f32), exactly as the JAX launcher does.
 Integer counters are written as 0-d int32 arrays.
 
 Dtype fidelity without ``ml_dtypes``: bfloat16 leaves are stored as

@@ -2,7 +2,7 @@
 <-> the port's ``{dotted.path: Tensor}`` dict, bitwise.  Optimizer
 states: the momentum kinds' (``OptState`` / resident), LAMB's, an
 interpreter-run chain's ``ChainOptState`` and a segment-plan optimizer's
-``("chain", slots)`` resident state (without EMA slots, not ported).
+``("chain", slots)`` resident state, EMA shadow slots included.
 
 The JAX side hands over its tree as numpy arrays (``np.asarray`` of
 each leaf, nested dicts keyed as in ``repro.models.transformer.
@@ -15,7 +15,7 @@ when a bfloat16 leaf is met.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -149,8 +149,8 @@ def chain_state_from_numpy(params: Dict[str, Any], state, *, device="cpu"):
     -> the port's ``TrainState`` (params, ``ChainOptState``) on
     ``device``.  Each stage's state is recognised by its fields: ()
     stateless, (momentum,) ``trace``, (count,) ``scale_by_schedule``,
-    (count, m, v) ``scale_by_adam``.  Counters become ints; bitwise,
-    bf16 included."""
+    (count, m, v) ``scale_by_adam``, (ema,) ``ema_params``.  Counters
+    become ints; bitwise, bf16 params included (the shadows are f32)."""
     from repro_torch.core import transform as T
     from repro_torch.core.optim import TrainState
     (p,) = _trees_on(device, params)
@@ -172,7 +172,7 @@ def chain_state_from_numpy(params: Dict[str, Any], state, *, device="cpu"):
             inner.append(T.ScaleByAdamState(int(f["count"]), slot(f["m"]),
                                             slot(f["v"])))
         elif keys == ("ema",):
-            raise NotImplementedError(T.EMA_NOT_PORTED)
+            inner.append(T.EmaParamsState(slot(f["ema"])))
         else:
             raise TypeError(f"no port state for a chain stage with fields {keys}")
     return TrainState(params=p,
@@ -182,26 +182,26 @@ def chain_state_from_numpy(params: Dict[str, Any], state, *, device="cpu"):
 def plan_state_from_numpy(params: Dict[str, Any], slots, step: int, *,
                           momentum: Optional[Dict[str, Any]] = None,
                           m: Optional[Dict[str, Any]] = None,
-                          v: Optional[Dict[str, Any]] = None, device="cpu"):
+                          v: Optional[Dict[str, Any]] = None,
+                          emas: Sequence[Dict[str, Any]] = (), device="cpu"):
     """A segment-plan optimizer's resident state across: the JAX
     package's ``FlatOptState`` of form ``("chain", slots)``, given as its
     numpy views (``state.params`` and ``state.momentum``, or
-    ``state.moments`` for an ``"adam"`` slot) -> the port's
-    ``TrainState`` (params None, ``FlatOptState`` of the same form) on
-    ``device``.  Bitwise.  EMA slots (``e_flats``) are not ported."""
+    ``state.moments`` for an ``"adam"`` slot, and ``state.ema_views``,
+    one per ``"ema"`` slot) -> the port's ``TrainState`` (params None,
+    ``FlatOptState`` of the same form) on ``device``.  Bitwise."""
     from repro_torch.core.multi_tensor import build_layout, flatten
     from repro_torch.core.optim import FlatOptState, TrainState
-    from repro_torch.core.transform import EMA_NOT_PORTED
     slots = tuple(slots)
-    if "ema" in slots:
-        raise NotImplementedError(EMA_NOT_PORTED)
     want_u, want_mv = "trace" in slots, "adam" in slots
-    if want_u != (momentum is not None) or want_mv != (m is not None
-                                                       and v is not None):
-        raise ValueError(f"slots {slots} need momentum for 'trace' and m, v "
-                         f"for 'adam', and nothing else")
+    if (want_u != (momentum is not None)
+            or want_mv != (m is not None and v is not None)
+            or slots.count("ema") != len(emas)):
+        raise ValueError(f"slots {slots} need momentum for 'trace', m, v "
+                         f"for 'adam' and one shadow tree per 'ema', and "
+                         f"nothing else")
     trees = _trees_on(device, params, *([momentum] if want_u else []),
-                      *([m, v] if want_mv else []))
+                      *([m, v] if want_mv else []), *emas)
     p = trees[0]
     layout = build_layout(p)
 
@@ -212,4 +212,5 @@ def plan_state_from_numpy(params: Dict[str, Any], slots, step: int, *,
         u_flats=packed(trees[1]) if want_u else (), layout=layout,
         m_flats=packed(trees[1]) if want_mv else (),
         v_flats=packed(trees[2]) if want_mv else (),
+        e_flats=tuple(packed(t) for t in trees[len(trees) - len(emas):]),
         form=("chain", slots)))

@@ -1,10 +1,10 @@
 """Multi-tensor fused optimizer engine, single device.
 
-A port of ``repro.core.multi_tensor`` (sharding and EMA slots are not
-ported yet).  The parameter dict is packed into dtype-bucketed flat
-buffers; one ``chunk_sumsq`` pass per bucket gives every global and
-per-tensor squared norm, and one ``fused_update`` pass per bucket
-applies momentum and the update — 2 kernel launches per bucket and step
+A port of ``repro.core.multi_tensor`` (sharding is not ported yet).
+The parameter dict is packed into dtype-bucketed flat buffers; one
+``chunk_sumsq`` pass per bucket gives every global and per-tensor
+squared norm, and one ``fused_update`` pass per bucket applies momentum
+and the update — 2 kernel launches per bucket and step
 for sngm, sngm_per_tensor and msgd, 3 for lars.  LAMB runs
 ``adam_update`` (both moments, the direction and its norm partials) and
 ``scale_apply`` (trust ratio, lr and apply): 2 launches per bucket and
@@ -37,8 +37,9 @@ The port's ``{dotted.path: Tensor}`` dicts keep insertion order, so
 walks that order.
 
 Residency: ``FlatOptState`` keeps params and f32 momentum (LAMB: the
-two f32 moments) as flat buffers across steps, and the kernels update
-them in place, where the JAX package donates them to
+two f32 moments; an EMA stage: its f32 shadow) as flat buffers across
+steps, and the kernels (the EMA advance: plain PyTorch) update them in
+place, where the JAX package donates them to
 ``input_output_aliases``.  A state that has
 been stepped must not be used again (its buffers now hold the new
 values), as a donated JAX state may not.  ``FlatOptState.params`` gives
@@ -58,7 +59,6 @@ from repro_torch.kernels.multi_tensor import ops as _ops
 from repro_torch.kernels.multi_tensor.ref import CHUNK, TILE, chunk_sumsq_ref
 
 Tree = Dict[str, torch.Tensor]
-NOT_PORTED = "is not ported yet (ROADMAP.md Queue A)"
 LAMB_FORM = ("lamb", 0, 2)      # the JAX package's form for a clip-free LAMB
 
 
@@ -274,15 +274,18 @@ class FlatOptState:
     carries its first and second moments in ``m_flats``/``v_flats``
     instead, and ``u_flats`` is empty.  A segment-plan optimizer's state
     has the form ``("chain", slots)``, slots tagging each chain stage's
-    state ("empty", "trace", "sched", "adam"), as in the JAX package.
-    The buffers are the parameters' single owner; ``params``,
-    ``momentum`` and ``moments`` are views into them."""
+    state ("empty", "trace", "sched", "adam", "ema"), as in the JAX
+    package; ``e_flats`` holds one tuple of per-bucket f32 shadow
+    buffers per ``ema_params`` stage, in stage order (empty without
+    one).  The buffers are the parameters' single owner; ``params``,
+    ``momentum``, ``moments`` and ``ema_views`` are views into them."""
     step: int
     p_flats: Tuple[torch.Tensor, ...]
     u_flats: Tuple[torch.Tensor, ...]
     layout: TreeLayout
     m_flats: Tuple[torch.Tensor, ...] = ()
     v_flats: Tuple[torch.Tensor, ...] = ()
+    e_flats: Tuple[Tuple[torch.Tensor, ...], ...] = ()
     form: Any = "momentum"
 
     @property
@@ -298,6 +301,11 @@ class FlatOptState:
         """(m, v) views of the Adam moments (f32)."""
         return (unflatten(self.m_flats, self.layout),
                 unflatten(self.v_flats, self.layout))
+
+    @property
+    def ema_views(self) -> Tuple[Tree, ...]:
+        """One f32 shadow-parameter view per resident EMA stage."""
+        return tuple(unflatten(e, self.layout) for e in self.e_flats)
 
 
 def init_flat_state(params: Tree, form: Any = "momentum") -> FlatOptState:
@@ -322,6 +330,38 @@ def init_flat_adam_state(params: Tree, form: Any = LAMB_FORM) -> FlatOptState:
                         m_flats=tuple(zeros_flats(layout, torch.float32, device)),
                         v_flats=tuple(zeros_flats(layout, torch.float32, device)),
                         form=form)
+
+
+# elements of a bucket the EMA advance takes at a time: it bounds the f32
+# temporary the advance needs (256 MiB) on a multi-GB bucket
+EMA_SLICE = 1 << 26
+
+
+def init_ema_flats(params: Tree, layout: TreeLayout
+                   ) -> Tuple[torch.Tensor, ...]:
+    """Resident shadow-parameter buffers for ONE ``ema_params`` stage: the
+    params packed into new f32 buffers (never views of ``p_flats``), as
+    the interpreter's ``ema_params`` init copies them leaf by leaf."""
+    return tuple(flatten(params, layout, cast_to=torch.float32))
+
+
+def ema_flats_update(e_flats: Sequence[torch.Tensor],
+                     p_flats: Sequence[torch.Tensor],
+                     decay: float) -> Tuple[torch.Tensor, ...]:
+    """One EMA advance on the resident buffers, in place and elementwise
+    (plain PyTorch, no kernel launch): ``e <- decay*e + (1-decay)*p`` on
+    the params as they are now, so it runs before the step's update
+    pass.  Two products and one add, each rounded (no ``lerp``, ``alpha``
+    or ``addcmul``: those may fuse a multiply-add), the interpreter's
+    expression bit for bit; zero padding stays zero.  A bucket goes
+    ``EMA_SLICE`` elements at a time."""
+    decay = float(decay)
+    for e, pf in zip(e_flats, p_flats):
+        for lo in range(0, e.numel(), EMA_SLICE):
+            es = e[lo:lo + EMA_SLICE]
+            es.mul_(decay)
+            es.add_((1 - decay) * pf[lo:lo + EMA_SLICE].float())
+    return tuple(e_flats)
 
 
 @dataclasses.dataclass(frozen=True)

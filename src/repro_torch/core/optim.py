@@ -31,8 +31,10 @@ round or a trailing clip), bitwise equal to the plain path;
 ``fused="per_leaf"`` (sngm with the global norm, sngd and lars) runs one
 kernel per tensor (``_per_leaf_kind_step``: 1 launch per leaf for sngm,
 3 for lars), the baseline the engine is measured against, bitwise equal
-to the plain path in fp32.  Not ported yet: ``ema_decay`` (ROADMAP.md
-Queue A5).
+to the plain path in fp32.  ``sngm(ema_decay=)`` appends an
+``ema_params`` stage: a segment plan whose shadow params are resident
+f32 slots on the engine (``FlatOptState.e_flats``, advanced in plain
+PyTorch, no launch), the interpreter otherwise.
 
 State forms: with ``fused="multi_tensor"``, ``init`` returns a resident
 ``FlatOptState`` whose flat buffers own the parameters (a segment plan's
@@ -61,10 +63,11 @@ import torch
 
 from repro_torch.core import transform as T
 from repro_torch.core.multi_tensor import (
-    LAMB_FORM, NOT_PORTED, FlatGrads, FlatOptState, _clip_flats_round,
-    _clip_tree_round, bias_corrections, build_layout, clip_leaf, clip_scale,
-    flat_global_norm, flatten, global_norm, init_flat_adam_state,
-    init_flat_state, leaf_order, leaf_sumsq, multi_tensor_lamb_step_flat,
+    LAMB_FORM, FlatGrads, FlatOptState, _clip_flats_round, _clip_tree_round,
+    bias_corrections, build_layout, clip_leaf, clip_scale, ema_flats_update,
+    flat_global_norm, flatten, global_norm, init_ema_flats,
+    init_flat_adam_state, init_flat_state, leaf_order, leaf_sumsq,
+    multi_tensor_lamb_step_flat,
     multi_tensor_step, multi_tensor_step_flat, require_matching_layout,
     resident_lamb_step, resident_step, trust_ratio)
 from repro_torch.core.schedules import Schedule, make_schedule
@@ -172,11 +175,10 @@ def _chain_state_of_lamb(form, step: int, m: Tree, v: Tree) -> "T.ChainOptState"
 def _chain_state_of_chain_form(state: FlatOptState) -> "T.ChainOptState":
     """The interpreter's ChainOptState for a segment-plan resident state:
     the ``("chain", slots)`` form tags every stage's state, the momentum
-    and moment views come from the resident buffers, and every counter
-    equals the step."""
+    and moment views come from the resident buffers, the EMA shadows from
+    ``e_flats`` (in stage order), and every counter equals the step."""
     _, slots = state.form
-    if "ema" in slots:
-        raise NotImplementedError(T.EMA_NOT_PORTED)
+    emas = iter(state.ema_views)
     inner = []
     for tag in slots:
         if tag == "trace":
@@ -186,6 +188,8 @@ def _chain_state_of_chain_form(state: FlatOptState) -> "T.ChainOptState":
         elif tag == "adam":
             m, v = state.moments
             inner.append(T.ScaleByAdamState(count=state.step, m=m, v=v))
+        elif tag == "ema":
+            inner.append(T.EmaParamsState(ema=next(emas)))
         else:
             inner.append(T.EmptyState())
     return T.ChainOptState(step=state.step, inner=tuple(inner))
@@ -229,8 +233,8 @@ def _flat_of_chain_state(state: "T.ChainOptState", params: Tree,
     """General ChainOptState -> the segment-plan ``("chain", slots)``
     resident form: the momentum into ``u_flats`` or the Adam moments
     into ``m_flats``/``v_flats`` (a chain carrying both has no flat
-    form)."""
-    slots, traces, adams = [], [], []
+    form), the EMA shadows into ``e_flats`` in stage order."""
+    slots, traces, adams, emas = [], [], [], []
     for s in state.inner:
         if isinstance(s, T.TraceState):
             slots.append("trace")
@@ -240,13 +244,16 @@ def _flat_of_chain_state(state: "T.ChainOptState", params: Tree,
         elif isinstance(s, T.ScaleByAdamState):
             slots.append("adam")
             adams.append(s)
+        elif isinstance(s, T.EmaParamsState):
+            slots.append("ema")
+            emas.append(s)
         elif isinstance(s, T.EmptyState):
             slots.append("empty")
         else:
             raise TypeError(
                 f"from_pytree: no flat slot for chain stage state "
                 f"{type(s).__name__}; only the canonical transform states "
-                f"(trace/sched/adam/stateless) have a flat form")
+                f"(trace/sched/adam/ema/stateless) have a flat form")
     if len(traces) > 1 or len(adams) > 1 or (traces and adams):
         raise TypeError(
             "from_pytree: only canonical single-momentum chain states have "
@@ -260,6 +267,7 @@ def _flat_of_chain_state(state: "T.ChainOptState", params: Tree,
         u_flats=packed(traces[0].momentum) if traces else (), layout=layout,
         m_flats=packed(adams[0].m) if adams else (),
         v_flats=packed(adams[0].v) if adams else (),
+        e_flats=tuple(packed(e.ema) for e in emas),
         form=("chain", tuple(slots)))
 
 
@@ -547,8 +555,8 @@ def _lamb_optimizer(schedule: Schedule, *, b1: float, b2: float, eps: float,
 
 
 # ---------------------------------------------------------------------------
-# segment plans: plain prefix stages + one fused engine tail, on the
-# ("chain", slots) FlatOptState form
+# segment plans: plain prefix stages + one fused engine tail + resident EMA
+# slots, on the ("chain", slots) FlatOptState form
 # ---------------------------------------------------------------------------
 
 def _packing_cast(updates: Tree, layout) -> Optional[torch.dtype]:
@@ -569,14 +577,17 @@ def _packing_cast(updates: Tree, layout) -> Optional[torch.dtype]:
 def _plan_optimizer(tx: "T.GradientTransform", plan: "T.SegmentPlan", *,
                     name: Optional[str] = None) -> Optimizer:
     """``compile_chain``'s target for segment plans (plain prefix stages +
-    one fused tail) under ``fused="multi_tensor"``.
+    one fused tail + EMA slots) under ``fused="multi_tensor"``.
 
     State is a ``FlatOptState`` with the ``("chain", slots)`` form: the
     tail's momentum resident in ``u_flats`` (lamb: ``m_flats``/
-    ``v_flats``).  Each step runs the plan's prefix stages leaf by leaf
+    ``v_flats``), one f32 shadow bucket set per ``ema_params`` stage in
+    ``e_flats``.  Each step runs the plan's prefix stages leaf by leaf
     (as the interpreter does; zero launches), folds a clip just before
-    the tail into the clip round, and runs the tail on the engine
-    (nesterov and trailing clip included).  Stats merge left to right as
+    the tail into the clip round, advances every EMA slot on the
+    pre-step params (``ema_flats_update``, before the tail's kernels
+    write ``p_flats`` in place; zero launches), and runs the tail on the
+    engine (nesterov and trailing clip included).  Stats merge left to right as
     in the interpreter; a tail with no norm-emitting stage (msgd, lamb)
     takes its ``grad_norm`` from the prefix's report or the raw gradient
     norm.  A ``ChainOptState`` fed here steps on the interpreter."""
@@ -585,12 +596,18 @@ def _plan_optimizer(tx: "T.GradientTransform", plan: "T.SegmentPlan", *,
     kp = dict(fused_node.kwargs)
     schedule = kp["schedule"]
     prefix = tuple(n for n in plan.nodes if n.op == "jnp")
+    emas = tuple(n for n in plan.nodes if n.op == "ema")
     form = ("chain", plan.slots)
 
     def init(params):
         if kind == "lamb":
-            return init_flat_adam_state(params, form=form)
-        return init_flat_state(params, form=form)
+            state = init_flat_adam_state(params, form=form)
+        else:
+            state = init_flat_state(params, form=form)
+        if not emas:
+            return state
+        return dataclasses.replace(state, e_flats=tuple(
+            init_ema_flats(params, state.layout) for _ in emas))
 
     def flat_step(grads, state):
         layout = state.layout
@@ -627,6 +644,9 @@ def _plan_optimizer(tx: "T.GradientTransform", plan: "T.SegmentPlan", *,
             stat_gnorm = (stats["grad_norm"] if "grad_norm" in stats else
                           flat_global_norm(grads.flats, layout) if flat_in
                           else global_norm(grads))
+        # the pre-step params: the tail's kernels overwrite p_flats in place
+        for e, node in zip(state.e_flats, emas):
+            ema_flats_update(e, state.p_flats, node.arg("decay"))
         if kind == "lamb":
             tstats = multi_tensor_lamb_step_flat(
                 layout, state.p_flats, g_flats, state.m_flats, state.v_flats,
@@ -678,20 +698,23 @@ def sngm(schedule: Schedule, beta: float = 0.9, weight_decay: float = 0.0,
     ``norm_mode``: "global" (the paper: one norm over the whole gradient)
     or "per_tensor" (each tensor normalized by its own norm).  ``nesterov``
     applies look-ahead momentum; the engine fuses it into the update
-    pass, so the launch count is unchanged."""
+    pass, so the launch count is unchanged.  ``ema_decay`` keeps an
+    exponential moving average of the params (an ``ema_params`` stage);
+    with ``fused="multi_tensor"`` the shadow params are resident f32
+    slots (``FlatOptState.e_flats``)."""
     if norm_mode not in ("global", "per_tensor"):
         raise ValueError(norm_mode)
     fused = _resolve_fused(fused)
     if fused == "per_leaf" and norm_mode != "global":
         raise ValueError("fused='per_leaf' supports norm_mode='global' only; "
                          "use fused='multi_tensor' for per_tensor")
-    if ema_decay is not None:
-        raise NotImplementedError(f"ema_decay {NOT_PORTED}")
     normalize = (T.normalize_by_global_norm if norm_mode == "global"
                  else T.normalize_per_tensor)
-    tx = T.chain(T.add_decayed_weights(weight_decay), normalize(eps),
-                 T.trace(beta, nesterov=nesterov),
-                 T.scale_by_schedule(schedule))
+    stages = [T.add_decayed_weights(weight_decay), normalize(eps),
+              T.trace(beta, nesterov=nesterov), T.scale_by_schedule(schedule)]
+    if ema_decay is not None:
+        stages.append(T.ema_params(ema_decay))
+    tx = T.chain(*stages)
     return T.compile_chain(tx, fused=fused, name=f"sngm[{norm_mode}]")
 
 

@@ -31,18 +31,18 @@ the JAX package:
     and ``w <- (w - u).to(w.dtype)``.  Asking for a fused mode then
     warns, naming the stage that blocked fusion.
 
+``ema_params`` stages (shadow parameters) are position-independent: they
+read the pre-step params and pass the updates through, so ``plan_chain``
+gives each an ``ema`` node beside the fused tail, and the engine keeps
+its shadow in resident f32 slots (``FlatOptState.e_flats``).
+
 Weight decay is positional: ``add_decayed_weights`` before a normalize or
 trust stage is coupled decay (the paper's), after it decoupled.  Stats
 merge left to right (later transforms win): the normalize, clip and
 trust stages report ``grad_norm`` of their input, ``trace`` reports
 ``update_norm`` of the momentum, ``scale_by_schedule`` reports ``lr``
-and the pre-scaling ``update_norm``.
-
-Not ported yet (ROADMAP.md Queue A): ``ema_params``.  ``plan_chain``
-still places an ``ema_params`` stage (so plans equal the JAX
-package's), but compiling, initialising or interpreting a chain that
-holds one raises ``NotImplementedError``.  Counters are Python ints
-and stats 0-dim f32 tensors.
+and the pre-scaling ``update_norm``.  Counters are Python ints and
+stats 0-dim f32 tensors.
 """
 from __future__ import annotations
 
@@ -63,8 +63,6 @@ Tree = Dict[str, torch.Tensor]
 Stats = Dict[str, torch.Tensor]
 InitFn = Callable[[Tree], Any]
 UpdateFn = Callable[[Tree, Any, Tree], Tuple[Tree, Any, Stats]]
-EMA_NOT_PORTED = ("ema_params (EMA shadow parameters) is not ported yet "
-                  "(ROADMAP.md Queue A5)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +104,10 @@ class ScaleByAdamState(NamedTuple):
     count: int
     m: Tree                        # f32 first moment
     v: Tree                        # f32 second moment
+
+
+class EmaParamsState(NamedTuple):
+    ema: Tree                      # f32 shadow params, mirrors params
 
 
 class ChainOptState(NamedTuple):
@@ -300,16 +302,24 @@ def scale_by_schedule(schedule: Schedule) -> GradientTransform:
 
 
 def ema_params(decay: float = 0.999) -> GradientTransform:
-    """The JAX package's Polyak-averaged shadow parameters, as a chain
-    stage the compiler can place (``plan_chain`` gives it an ``ema``
-    node); its state and update are not ported yet and raise."""
+    """Polyak-averaged shadow parameters for evaluation: keeps
+    ``ema <- decay * ema + (1 - decay) * w`` (f32, two products and one
+    add, each rounded, as the JAX package computes it) and passes the
+    updates through.  The shadow is read from the chain state
+    (``ChainOptState.inner[i].ema``)."""
     decay = float(decay)
 
     def init(params):
-        raise NotImplementedError(EMA_NOT_PORTED)
+        # copy=True: .to(float32) of an f32 tensor returns the tensor
+        # itself, and a shadow sharing the params' storage would move
+        # with every parameter update
+        return EmaParamsState(ema={k: p.detach().to(torch.float32, copy=True)
+                                   for k, p in params.items()})
 
     def update(updates, state, params):
-        raise NotImplementedError(EMA_NOT_PORTED)
+        new_ema = {k: decay * e + (1 - decay) * params[k].float()
+                   for k, e in state.ema.items()}
+        return updates, EmaParamsState(new_ema), {}
 
     return GradientTransform("ema_params", init, update, (("decay", decay),))
 
@@ -460,7 +470,8 @@ class PlanNode:
 
     ``op`` is ``"jnp"`` (a stateless prefix stage run leaf by leaf, as
     the interpreter runs it; zero launches), ``"ema"`` (an
-    ``ema_params`` stage; the JAX package keeps it in a resident slot) or
+    ``ema_params`` stage, kept in a resident slot and advanced on the
+    pre-step params; zero launches) or
     ``"fused"`` (the engine-lowered tail segment).  The op names are the
     JAX package's, so plans compare equal across the two.  ``stages``
     are the chain indices the node covers; ``launches`` the node's
@@ -617,16 +628,10 @@ def plan_chain(tx: GradientTransform) -> SegmentPlan:
 # the interpreter and the compiler
 # ---------------------------------------------------------------------------
 
-def _refuse_ema(tx: GradientTransform) -> None:
-    if any(p.name == "ema_params" for p in _parts(tx)):
-        raise NotImplementedError(EMA_NOT_PORTED)
-
-
 def interpreter_step(tx: GradientTransform, grads, state: ChainOptState,
                      params: Optional[Tree]):
     """One interpreter step of a chain: the reference every compiled path
     is held against.  Returns (new_params, new_state, stats)."""
-    _refuse_ema(tx)
     if params is None:
         raise TypeError(
             "interpreter-run chains carry no resident parameter buffers; "
@@ -663,11 +668,9 @@ def compile_chain(tx: GradientTransform, *, fused: Optional[str] = None,
     the chain cannot take warns and falls back to the interpreter.
     ``interpret=True`` runs ANY chain on the interpreter.  The optimizer
     carries its ``SegmentPlan`` as ``opt.plan`` (None under
-    ``interpret=True``).  A chain holding ``ema_params`` raises
-    ``NotImplementedError``."""
+    ``interpret=True``)."""
     from repro_torch.core import optim   # deferred: optim builds chains here
 
-    _refuse_ema(tx)
     plan = None if interpret else plan_chain(tx)
     matched = None if interpret else match_chain(tx)
     if matched is not None:

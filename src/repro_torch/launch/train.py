@@ -41,8 +41,13 @@ each batch on the training thread).  The sequence length is the pack's
 every checkpoint (``loader_state``: the prefetcher's snapshot, never the
 loader's run-ahead position), so ``--resume`` re-seeks the stream and
 batch ``t`` after a resume is bitwise batch ``t`` of an uninterrupted
-run, whichever launcher wrote the checkpoint.  Not ported yet, and
-refused with a clear error: ``--ema-decay`` and meshes
+run, whichever launcher wrote the checkpoint.
+
+``--ema-decay D`` keeps shadow parameters (``sngm(ema_decay=D)``; the
+other optimizers' builders take no such keyword and ignore it, as in
+the JAX launcher): resident f32 slots on the engine, saved in the
+checkpoint as the chain's ``ema_params`` state and restored with it.
+Not ported yet, and refused with a clear error: meshes
 (``--model-axis``, ``--pod-axis``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b \\
@@ -142,16 +147,17 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--prefetch", type=int, default=2,
                     help="host->device prefetch depth for --data-dir runs "
                          "(0 = synchronous next(); 2 = double buffering)")
+    ap.add_argument("--ema-decay", type=float, default=0.0,
+                    help="keep an exponential moving average of the params "
+                         "(0 = off); on the resident path the shadow params "
+                         "live in the flat f32 EMA slots and ride the "
+                         "checkpoint like any other optimizer state")
     # accepted so that the JAX launcher's command lines give a clear error
-    ap.add_argument("--ema-decay", type=float, default=0.0)
     ap.add_argument("--model-axis", type=int, default=1)
     ap.add_argument("--pod-axis", type=int, default=1)
     args = ap.parse_args(argv)
-    for flag, on in (("--ema-decay", args.ema_decay != 0.0),
-                     ("a mesh (--model-axis, --pod-axis)",
-                      args.model_axis != 1 or args.pod_axis != 1)):
-        if on:
-            ap.error(f"{flag} {NOT_PORTED}")
+    if args.model_axis != 1 or args.pod_axis != 1:
+        ap.error(f"a mesh (--model-axis, --pod-axis) {NOT_PORTED}")
     return args
 
 
@@ -332,8 +338,9 @@ def _restore(path: str, params, state):
     whichever state form it has: the archive holds the pytree form
     (``OptState`` or ``ChainOptState``, whichever package wrote it), the
     template is ``to_pytree`` of the live state (views into a resident
-    state's buffers), and each leaf is copied into its tensor as it is
-    read, so a restore needs no second copy of the state.  Returns
+    state's buffers, the EMA shadows' into ``e_flats``), and each leaf is
+    copied into its tensor as it is read, so a restore needs no second
+    copy of the state.  Returns
     ({"params", "opt"}, step).
 
     A torn directory (no ``COMMIT`` marker and not a demonstrably

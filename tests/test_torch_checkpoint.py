@@ -6,8 +6,11 @@ Every state form of the port saves the JAX package's archive keys,
 optimizer, and comes back bitwise, fp32 and bf16: ``OptState``
 (``fused=None``, ``per_leaf``), the resident momentum state, LAMB on the
 engine and on the plain path (saved as the interpreter's
-``ChainOptState``), and a mid-chain clip on the ``("chain", slots)``
-form.  Checkpoints cross both ways bitwise.  The rest are the JAX
+``ChainOptState``), a mid-chain clip on the ``("chain", slots)`` form,
+and SNGM with EMA shadow parameters (``sngm(ema_decay=)``) on the engine
+(resident ``e_flats``) and on the interpreter, keyed ``opt/.inner/[4]/
+.ema/...`` as the JAX launcher saves them.  Checkpoints cross both ways
+bitwise, the EMA states in every pairing of the two packages' forms.  The rest are the JAX
 package's own checkpoint tests (``tests/test_checkpoint.py``,
 ``tests/test_data_pipeline.py``) on the port: torn saves, swaps, clobber
 guards, casts, legacy archives, retention and async saves, plus an
@@ -120,7 +123,12 @@ def mid_clip(T, S):
 
 FORMS = {"sngm_none": ("sngm", None), "sngm_per_leaf": ("sngm", "per_leaf"),
          "sngm_engine": ("sngm", "multi_tensor"), "lamb_none": ("lamb", None),
-         "lamb_engine": ("lamb", "multi_tensor"), "mid_clip_chain": None}
+         "lamb_engine": ("lamb", "multi_tensor"), "mid_clip_chain": None,
+         "ema_none": ("sngm", None), "ema_engine": ("sngm", "multi_tensor")}
+# the builder keywords a form adds to the two above
+EXTRA = {"ema_none": {"ema_decay": 0.99}, "ema_engine": {"ema_decay": 0.99}}
+EMA_KEYS = ("opt/.inner/[2]/.momentum/", "opt/.inner/[3]/.count",
+            "opt/.inner/[4]/.ema/")
 
 
 def make_opts(form):
@@ -129,9 +137,18 @@ def make_opts(form):
         return (TT.compile_chain(mid_clip(TT, TS), fused="multi_tensor"),
                 JT.compile_chain(mid_clip(JT, JS), fused="multi_tensor"))
     name, fused = FORMS[form]
-    return (topt.make_optimizer(name, CONST, weight_decay=1e-4, fused=fused),
-            jopt.make_optimizer(name, JS.make_schedule(CONST), weight_decay=1e-4,
-                                fused=fused))
+    kw = dict(weight_decay=1e-4, fused=fused, **EXTRA.get(form, {}))
+    return (topt.make_optimizer(name, CONST, **kw),
+            jopt.make_optimizer(name, JS.make_schedule(CONST), **kw))
+
+
+def flat_slots(state):
+    """Every resident buffer of a ``FlatOptState``, by field, the EMA
+    stages' buffers one after the other."""
+    return {name: [f for e in getattr(state, name) for f in e]
+            if name == "e_flats" else list(getattr(state, name))
+            for name in ("p_flats", "u_flats", "m_flats", "v_flats",
+                         "e_flats")}
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -157,6 +174,8 @@ def test_state_form_saves_the_jax_format_and_round_trips_bitwise(form, dtype,
     keys = [set(np.load(tmp_path / d / "shard_00000.npz").files)
             for d in ("port", "jax")]
     assert keys[0] == keys[1]
+    if form.startswith("ema"):
+        assert all(any(k.startswith(e) for k in keys[0]) for e in EMA_KEYS)
     meta = [(tmp_path / d / "meta.json").read_text() for d in ("port", "jax")]
     assert meta[0] == meta[1]
     assert json.loads(meta[0])["format"] == 3
@@ -175,13 +194,15 @@ def test_state_form_saves_the_jax_format_and_round_trips_bitwise(form, dtype,
     if isinstance(ts.opt_state, tmt.FlatOptState):
         a, b = ts.opt_state, restored["opt"]
         assert a.form == b.form and a.step == b.step
-        for name in ("p_flats", "u_flats", "m_flats", "v_flats"):
-            for x, y in zip(getattr(a, name), getattr(b, name)):
+        fa, fb = flat_slots(a), flat_slots(b)
+        for name in fa:
+            assert len(fa[name]) == len(fb[name])
+            for x, y in zip(fa[name], fb[name]):
                 np.testing.assert_array_equal(bits(x), bits(y))
 
 
 @pytest.mark.parametrize("form", ["sngm_engine", "lamb_engine", "mid_clip_chain",
-                                  "lamb_none"])
+                                  "lamb_none", "ema_engine"])
 def test_to_pytree_from_pytree_identity(form):
     """``from_pytree(to_pytree(s), params)`` rebuilds a stepped resident
     state bit for bit (its form too); a plain LambState comes back from
@@ -197,9 +218,10 @@ def test_to_pytree_from_pytree_identity(form):
         return
     back = topt.from_pytree(topt.to_pytree(s), s.params)
     assert back.form == s.form and back.step == s.step == 1
-    for name in ("p_flats", "u_flats", "m_flats", "v_flats"):
-        assert len(getattr(back, name)) == len(getattr(s, name))
-        for x, y in zip(getattr(s, name), getattr(back, name)):
+    fs, fb = flat_slots(s), flat_slots(back)
+    for name in fs:
+        assert len(fb[name]) == len(fs[name])
+        for x, y in zip(fs[name], fb[name]):
             assert x.dtype == y.dtype
             np.testing.assert_array_equal(bits(x), bits(y))
 
@@ -231,6 +253,56 @@ def test_jax_saved_checkpoint_loads_in_the_port_bitwise(name, dtype, tmp_path):
     back, step = jio.load_checkpoint(str(tmp_path / "port"), jtree)
     assert step == 2
     assert_same(jtree, back)
+
+
+@pytest.mark.parametrize("port_fused", [None, "multi_tensor"])
+@pytest.mark.parametrize("jax_fused", [None, "multi_tensor"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_ema_checkpoints_cross_both_ways_bitwise(dtype, jax_fused, port_fused,
+                                                 tmp_path):
+    """SNGM with EMA: the JAX package steps twice and saves its state's
+    pytree form (as its launcher does), interpreter or engine; the port
+    restores it into either of its forms, every bit (the f32 shadows of
+    bf16 params too) and the step; the port's save of that state has
+    the JAX save's keys, dtypes and ``meta.json`` and reads back in JAX
+    bitwise, into its engine form as well."""
+    npp = np_tree(dtype)
+    jparams = jax.tree.map(jnp.asarray, npp)
+    jg = jax.tree.map(jnp.asarray, np_tree(dtype, seed=1))
+    jo = jopt.make_optimizer("sngm", JS.make_schedule(CONST), weight_decay=1e-4,
+                             ema_decay=0.99, fused=jax_fused)
+    js, jp = jo.init(jparams), jparams
+    for _ in range(2):
+        jp, js, _ = jo.step(jg, js, jp if jax_fused is None else None)
+    if jax_fused is not None:
+        jp = js.params
+    jtree = {"params": jp, "opt": jopt.to_pytree(js)}
+    jio.save_checkpoint(str(tmp_path / "jax"), jtree, step=2)
+
+    to = topt.make_optimizer("sngm", CONST, weight_decay=1e-4, ema_decay=0.99,
+                             fused=port_fused)
+    fresh = to.init_state(port_tree(np_tree(dtype, seed=2)))
+    restored, step = _restore(str(tmp_path / "jax"), fresh.params_view,
+                              fresh.opt_state)
+    assert step == 2 and restored["opt"].step == 2
+    assert type(restored["opt"]) is type(fresh.opt_state)
+    got = {"params": restored["params"], "opt": topt.to_pytree(restored["opt"])}
+    assert_same(jtree, got)
+
+    save_checkpoint(str(tmp_path / "port"), got, step=2)
+    keys = [np.load(tmp_path / d / "shard_00000.npz").files
+            for d in ("port", "jax")]
+    assert keys[0] == keys[1]
+    assert all(any(k.startswith(e) for k in keys[0]) for e in EMA_KEYS)
+    assert (tmp_path / "port" / "meta.json").read_text() == \
+        (tmp_path / "jax" / "meta.json").read_text()
+    back, step = jio.load_checkpoint(str(tmp_path / "port"), jtree)
+    assert step == 2
+    assert_same(jtree, back)
+    if jax_fused is not None:
+        flat = jopt.from_pytree(back["opt"], back["params"])
+        for a, b in zip(js.e_flats[0] + js.p_flats, flat.e_flats[0] + flat.p_flats):
+            np.testing.assert_array_equal(bits(a), bits(b))
 
 
 def test_checkpoint_code_needs_no_ml_dtypes_jax_or_repro(tmp_path):

@@ -15,6 +15,14 @@ gemma-2b smoke on the CPU, torch at 2 threads.  Held:
     adopted, and the lr of every resumed step is the JAX schedule's
     (later losses are not held: the smoke run is chaotic, ROADMAP C1);
   * the JAX launcher resumes the port's checkpoint;
+  * ``--ema-decay``: a split ``--fused multi_tensor`` run prints the
+    uninterrupted run's lines and saves its final checkpoint bit for bit,
+    the EMA shadows included (resumed on the engine and under ``--fused
+    none``); the two launchers write the same ``train_meta.json``; a
+    checkpoint of either launcher resumes in both, and the two continue
+    to the same EMA bits (decay 0.5: exact products, so the JAX
+    package's compiled step, which may fuse a multiply-add, rounds as
+    the port does);
   * ``--data-dir``: a ``--prefetch 2 --save-every 2 --async-save`` run
     split by ``--resume`` (resumed with prefetch or without) prints the
     uninterrupted run's step lines bitwise, and every checkpoint's
@@ -153,6 +161,96 @@ def test_jax_launcher_resumes_a_port_checkpoint(tmp_path):
     assert f"[train] resumed {ck} at step 2" in text
     assert len(lines) == 1 and lines[0].startswith("  step     2 ")
     assert "lr=0.0047" in lines[0]
+
+
+# ------------------------------------------------------------ --ema-decay
+
+def _archive(path):
+    z = np.load(os.path.join(path, "shard_00000.npz"))
+    return {k: z[k] for k in z.files}
+
+
+def _same_archives(a, b, only=""):
+    assert sorted(a) == sorted(b)
+    keys = [k for k in a if k.startswith(only)]
+    assert keys
+    for k in keys:
+        assert a[k].dtype == b[k].dtype, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+EMA = RUNS["sngm"] + ["--ema-decay", "0.99"]
+
+
+def test_split_ema_run_matches_the_uninterrupted_run(tmp_path):
+    """4 steps against 2 + save + resume for 2 more (on the engine, and
+    under ``--fused none`` from the same checkpoint): the step lines and
+    the final checkpoint, EMA shadows included, bit for bit."""
+    flags = EMA + ["--fused", "multi_tensor", "--total-steps", "4"]
+    full, _ = port(flags + ["--steps", "4", "--ckpt", str(tmp_path / "full")])
+    ck = str(tmp_path / "ck")
+    first, _ = port(flags + ["--steps", "2", "--ckpt", ck])
+    assert first == full[:2]
+    assert any(k.startswith("opt/.inner/[4]/.ema/") for k in _archive(ck))
+    shutil.copytree(ck, str(tmp_path / "ck_plain"))
+    resumed, text = port(flags + ["--steps", "4", "--ckpt", ck, "--resume"])
+    assert f"[train] resumed {ck} at step 2" in text
+    assert resumed == full[2:]
+    want = _archive(str(tmp_path / "full"))
+    _same_archives(want, _archive(ck))
+    plain, _ = port(EMA + ["--fused", "none", "--steps", "4", "--ckpt",
+                           str(tmp_path / "ck_plain"), "--resume"])
+    assert plain == full[2:]
+    _same_archives(want, _archive(str(tmp_path / "ck_plain")))
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_ema_checkpoint_resumes_in_both_launchers(writer, tmp_path):
+    """One launcher trains 2 of 3 steps with ``--ema-decay 0.5`` on the
+    engine and saves; each launcher resumes a copy and runs step 2.  The
+    port restores every bit the checkpoint holds; both write the same
+    ``train_meta.json`` for the same flags; both print step 2 at the same
+    lr; and their step-3 EMA shadows are the same bits (the advance reads
+    only the restored params and shadow)."""
+    flags = ["--optimizer", "sngm", "--lr", "0.5", "--ema-decay", "0.5",
+             "--fused", "multi_tensor", "--total-steps", "3"]
+    ck = str(tmp_path / "ck")
+    metas = {}
+    for who, main in (("jax", lambda a: run(jax_launcher.main, BASE + a)),
+                      ("port", port)):
+        dest = ck if who == writer else str(tmp_path / f"meta_{who}")
+        main(flags + ["--steps", "2", "--ckpt", dest])
+        metas[who] = open(os.path.join(dest, "train_meta.json")).read()
+    assert metas["jax"] == metas["port"]
+    assert json.loads(metas["port"])["optimizer_spec"]["kwargs"]["ema_decay"] == 0.5
+    for who in ("jax", "port"):
+        shutil.copytree(ck, str(tmp_path / f"ck_{who}"))
+    args = launcher.parse_args(BASE + ["--device", "cpu", "--steps", "3",
+                                       "--fused", "multi_tensor", "--ckpt", ck,
+                                       "--resume"])
+    plan = launcher.plan_run(args)
+    r = launcher.build(args, plan.spec)
+    assert launcher.resume(r, plan.resume_path) == 2
+    got = tio._flatten({"params": r.state.params_view,
+                        "opt": topt.to_pytree(r.state.opt_state)})
+    saved = _archive(ck)
+    assert set(got) == set(saved)
+    for k, v in got.items():
+        np.testing.assert_array_equal(np.asarray(v) if isinstance(v, int)
+                                      else v.view(torch.int16).numpy()
+                                      .view(np.uint16)
+                                      if v.dtype == torch.bfloat16
+                                      else v.numpy(), saved[k], err_msg=k)
+    lines = {}
+    lines["jax"], _ = run(jax_launcher.main, BASE + [
+        "--steps", "3", "--ckpt", str(tmp_path / "ck_jax"), "--resume"])
+    lines["port"], _ = port(["--steps", "3", "--fused", "multi_tensor",
+                             "--ckpt", str(tmp_path / "ck_port"), "--resume"])
+    assert [l[:13] for l in lines["jax"]] == ["  step     2 "]
+    assert lines["jax"][0].split("lr=")[1] == lines["port"][0].split("lr=")[1]
+    _same_archives(_archive(str(tmp_path / "ck_jax")),
+                   _archive(str(tmp_path / "ck_port")),
+                   only="opt/.inner/[4]/.ema/")
 
 
 # ------------------------------------------------------------ --data-dir

@@ -389,6 +389,16 @@ def test_launcher_accepts_and_runs_per_leaf(capsys):
                                    ["--data-dir", "d"],
                                    ["--ema-decay", "0.9"], ["--model-axis", "2"]])
 def test_launcher_refuses_what_is_not_ported(flags, capsys, tmp_path):
+    if "--ema-decay" in flags:
+        # ported since (EMA shadow parameters): the flag reaches sngm's
+        # builder as the JAX launcher passes it, and the run builds
+        args = launcher.parse_args(["--reduced", "--device", "cpu", *flags])
+        assert args.ema_decay == 0.9
+        spec = launcher.spec_from_args(args, 10)
+        assert spec.kwargs["ema_decay"] == 0.9
+        opt = launcher.build(args, spec).opt
+        assert opt.plan.describe().endswith("ema[0]:0.9")
+        return
     if "--data-dir" in flags:
         # ported since (repro_torch.data): the flag parses, and a
         # directory that is not a pack is refused when the run is built

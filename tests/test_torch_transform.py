@@ -621,17 +621,24 @@ def test_fallback_warnings_carry_the_jax_messages():
 
 
 def test_ema_params_raises_naming_the_roadmap():
+    """Ported since (EMA shadow parameters): every call that raised now
+    runs, and nothing names the roadmap.  The engine's slots are held
+    bitwise to the interpreter in ``tests/test_torch_ema.py``."""
     tx = PLAN_CHAINS["ema"](TT, TS)
     assert TT.plan_chain(tx).kind == "sngm_global"
-    params = from_numpy_tree(_trees("f32")[0])
-    for call in (lambda: TT.compile_chain(tx, fused="multi_tensor"),
-                 lambda: TT.compile_chain(tx, interpret=True),
-                 lambda: TT.ema_params(0.9).init(params),
-                 lambda: TT.interpreter_step(tx, params, TT.ChainOptState(0, ()),
-                                             params),
-                 lambda: topt.sngm(TS.constant(0.1), ema_decay=0.99)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    params, grads = _trees("f32", 1)
+    params, g = from_numpy_tree(params), from_numpy_tree(grads[0])
+    engine = TT.compile_chain(tx, fused="multi_tensor")
+    interp = TT.compile_chain(tx, interpret=True)
+    assert isinstance(engine.init(params), tmt.FlatOptState)
+    st = TT.ema_params(0.9).init(params)
+    assert isinstance(st, TT.EmaParamsState)
+    assert all(torch.equal(st.ema[k], params[k]) for k in params)
+    _, new, _ = TT.interpreter_step(tx, g, interp.init(params), params)
+    assert isinstance(new.inner[-1], TT.EmaParamsState) and new.step == 1
+    opt = topt.sngm(TS.constant(0.1), ema_decay=0.99)
+    assert opt.plan.describe().endswith("ema[0]:0.99")
+    assert not hasattr(TT, "EMA_NOT_PORTED")
 
 
 @pytest.mark.parametrize("name,kw,launches", [
