@@ -17,8 +17,10 @@ disk through the streaming loader and host-to-device prefetch; and the
 paper's own experiments: the Fig. 1 / Table 2 convnet and the Table 3
 LM proxy through the port's training loops, on the engine; and SNGM
 with EMA shadow parameters (``--ema-decay``) on the engine and through a
-checkpoint.  Holds every kernel (11 rows: the deferred apply has its
-own) against its plain PyTorch version.
+checkpoint; and the dense serving engine (``--engine dense``), against
+both paged paths and on a rotated ring past a long-context window.
+Holds every kernel (11 rows: the deferred apply has its own) against
+its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -214,7 +216,32 @@ Phases, each raising on failure:
      step 2, the archive's keys the live state's pytree form, every
      restored byte (the EMA slots too) bitwise, steps 2-3 within twice the
      live-live difference (0 if they repeat);
- 22. one JSON line of kernel timings against their bounds (11 rows;
+ 22. the dense serving engine at full width (run after phase 5; it
+     launches no kernel of its own: dense decode attention is the model's
+     plain ``_sdpa``, as in the JAX package): (a) phase 3's 16 requests,
+     queued at once, on 8 slots at ctx 544 through the launcher's
+     ``ContinuousBatcher`` and ``serve_dense`` at bf16 compute, the launch
+     counts set to 0 just before and read just after (the paged kernel
+     must launch 0 times); every request 64 in-vocabulary tokens;
+     tok/s, latency p50/p99, ms a decode step, prefill calls and distinct
+     shapes and peak memory, beside phase 3's paged figures; (b) phase
+     4's prompts, teacher-forced on the dense engine's greedy tokens
+     through the dense engine, the paged plain gather path and the paged
+     kernel path, bf16 and fp32: dense against plain gather at matched
+     geometry (dense context = nbmax x block size) bitwise in fp32 (else
+     within ``DENSE_REL`` of the max logit, logged), dense against the
+     kernel path within ``LOGIT_REL``, greedy agreement logged; (c)
+     gemma-2b ``for_long_context()`` (18 layers, window 8192) at fp32:
+     one prompt of 8448 tokens rotates every ring at prefill, 4 decode
+     steps on the rings unpadded, each within ``LOGIT_REL["float32"]`` of
+     the same decode on the same prefill kept whole (the linear layout,
+     the window a mask only); each layout's distance to a teacher-forced
+     prefill of the prefix logged beside the logits' move under a
+     one-ulp scale of one weight leaf (at this length the random stack
+     turns that alone into ~1e-3 of the max logit, so decode against
+     prefill is a reading, not a bound); ``pad_cache`` must refuse the
+     rotated cache; peak memory; (d) the phase's seconds;
+ 23. one JSON line of kernel timings against their bounds (11 rows;
      flash attention's row is the bf16 gemma-2b prefill), then the JSON
      result line.
 
@@ -229,6 +256,7 @@ device spin before the start event, so the host's enqueue (logged as
     python3 chip_smoke.py --data-only   # phases 1 and 19, with the pack
     python3 chip_smoke.py --convnet-only  # phases 1 and 20: the paper's convnet
     python3 chip_smoke.py --ema-only    # phases 1 and 21: EMA shadow params
+    python3 chip_smoke.py --dense-only  # phases 1 and 22: the dense engine
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -613,17 +641,28 @@ def phase_serve(torch, kernels, serve_mod, cfg, rt):
     sched.alloc.check()
     if sched.alloc.used_blocks:
         raise AssertionError(f"{sched.alloc.used_blocks} blocks leaked")
-    return params, launches, st["decode_s"] / st["decode_steps"] * 1e3
+    summary = {"tok_s": tokens / dt, "p50_s": np.percentile(lats, 50),
+               "p99_s": np.percentile(lats, 99),
+               "step_ms": st["decode_s"] / st["decode_steps"] * 1e3,
+               "prefill_calls": st["prefill_calls"],
+               "prefill_shapes": len(st["prefill_shapes"]), "peak_gib": peak_gib}
+    return params, launches, summary
 
 
 # ---------------------------------------------------------------------------
 # phase 4: whole decode path, kernel against plain gather
 # ---------------------------------------------------------------------------
 
-def phase_path(torch, cfg, params, Runtime, device, serving, steps=4):
+def phase_path(torch, cfg, params, Runtime, device, serving, steps=4,
+               dense=False):
     """Prefill 8 prompts once, splice them into two pools, and run
     ``steps`` teacher-forced decode steps through the kernel path and
-    through the model's plain gather path."""
+    through the model's plain gather path.  With ``dense`` (phase 22b)
+    the same prefill, padded to the pools' gathered length, also feeds
+    the dense engine, and every engine is fed the dense engine's greedy
+    tokens: dense against the plain gather path at matched geometry
+    (bitwise in fp32, else DENSE_REL), dense against the kernel path
+    within LOGIT_REL."""
     from repro_torch.serving import paged_cache as pc
     prompts = traffic(cfg.vocab_size, seed=1)[:SLOTS]
     S = max(len(p) for p in prompts)
@@ -632,7 +671,7 @@ def phase_path(torch, cfg, params, Runtime, device, serving, steps=4):
         toks[i, :len(p)] = p
     last = np.array([len(p) - 1 for p in prompts], np.int32)
     rt_k, rt_p = Runtime(device, paged_kernel=True), Runtime(device, paged_kernel=False)
-    logits, dense = serving.make_prefill_step(cfg, rt_k)(
+    logits, prefilled = serving.make_prefill_step(cfg, rt_k)(
         params, torch.from_numpy(toks).to(device),
         last_pos=torch.from_numpy(last).to(device))
     nbmax = pc.n_blocks_for(S + steps, BLOCK_SIZE)
@@ -643,14 +682,18 @@ def phase_path(torch, cfg, params, Runtime, device, serving, steps=4):
         for row in range(SLOTS):
             ids = list(range(1 + row * nbmax, 1 + (row + 1) * nbmax))
             pc.set_block_table(paged, row, ids)
-            pc.splice_prefill(paged, dense, row, row, ids)
+            pc.splice_prefill(paged, prefilled, row, row, ids)
         caches.append(paged)
+    if dense:
+        caches.append(serving.pad_cache(prefilled, nbmax * BLOCK_SIZE - S))
+    del prefilled
     step_k = serving.make_serve_step(cfg, rt_k)
     step_p = serving.make_serve_step(cfg, rt_p)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
     pos = torch.from_numpy(last + 1).to(device)
-    worst = 0.0
-    agree = 0
+    worst = worst_dk = worst_dp = 0.0
+    agree = agree_dk = 0
+    bitwise = True
     for i in range(steps):
         nk, lk, caches[0] = step_k(params, caches[0], tok, pos)
         npl, lp, caches[1] = step_p(params, caches[1], tok, pos)
@@ -659,15 +702,242 @@ def phase_path(torch, cfg, params, Runtime, device, serving, steps=4):
         rel = ((lk - lp).abs().max() / lp.abs().max()).item()
         worst = max(worst, rel)
         agree += int((nk == npl).sum())
-        log(f"decode step {i}: max|dlogits|/max|logits| {rel:.3g}, "
-            f"max|logits| {lp.abs().max().item():.4g}")
-        tok, pos = nk[:, None], pos + 1           # teacher-force both paths
+        msg = (f"decode step {i}: max|dlogits|/max|logits| {rel:.3g}, "
+               f"max|logits| {lp.abs().max().item():.4g}")
+        nxt = nk
+        if dense:
+            nd, ld, caches[2] = step_p(params, caches[2], tok, pos)
+            if not bool(torch.isfinite(ld).all()):
+                raise AssertionError("dense-engine logits are not finite")
+            bitwise &= bool(torch.equal(ld, lp))
+            dp = ((ld - lp).abs().max() / lp.abs().max()).item()
+            dk = ((ld - lk).abs().max() / lk.abs().max()).item()
+            worst_dp, worst_dk = max(worst_dp, dp), max(worst_dk, dk)
+            agree_dk += int((nd == nk).sum())
+            msg = (f"decode step {i}: dense vs plain gather {dp:.3g} (bitwise "
+                   f"{bool(torch.equal(ld, lp))}), dense vs kernel {dk:.3g}, "
+                   f"kernel vs plain gather {rel:.3g} of max|logits| "
+                   f"{lp.abs().max().item():.4g}")
+            nxt = nd
+        log(msg)
+        tok, pos = nxt[:, None], pos + 1          # teacher-force every path
     bound = LOGIT_REL[cfg.compute_dtype]
     log(f"whole path ({cfg.compute_dtype} compute), kernel vs plain gather "
         f"over {steps} steps: worst {worst:.3g} (bound {bound}); greedy tokens "
         f"agree {agree}/{steps * SLOTS}")
     if worst > bound:
         raise AssertionError(f"kernel path logits differ by {worst:.3g}")
+    if not dense:
+        return
+    log(f"22b ({cfg.compute_dtype}): dense engine vs paged plain gather at "
+        f"matched geometry (context {nbmax * BLOCK_SIZE}) over {steps} steps: "
+        f"{'bitwise' if bitwise else 'not bitwise'}, worst {worst_dp:.3g} of "
+        f"max|logits|; dense vs paged kernel worst {worst_dk:.3g} (bound "
+        f"{bound}); greedy tokens agree {agree_dk}/{steps * SLOTS}")
+    if cfg.compute_dtype == "float32" and not bitwise and worst_dp > DENSE_REL:
+        raise AssertionError(f"dense vs plain gather differ by {worst_dp:.3g} "
+                             f"(bound {DENSE_REL})")
+    if worst_dk > bound:
+        raise AssertionError(f"dense vs kernel path logits differ by {worst_dk:.3g}")
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the dense serving engine
+# ---------------------------------------------------------------------------
+
+# 22b: in fp32 the dense engine and the paged plain gather path run the
+# same ops on the same values at matched geometry, so they should agree
+# bitwise, as the JAX package's test holds them; if the card's GEMMs pick
+# another algorithm for the two (other pointers), their logits may differ
+# in the last bits, which the stack can grow to ~1e-6 of the max logit
+DENSE_REL = 2e-5
+LONG_PROMPT, LONG_STEPS = 8448, 4      # past for_long_context()'s window of 8192
+
+
+def phase_dense_serve(torch, kernels, serve_mod, cfg, rt, params, paged_fig):
+    """22a: phase 3's traffic (all 16 requests queued at once) on the
+    dense engine through the launcher's ``ContinuousBatcher`` and
+    ``serve_dense``; the launch counts set to 0 just before, read just
+    after: the paged kernel must not launch."""
+    prompts = traffic(cfg.vocab_size)
+    batcher = serve_mod.ContinuousBatcher(cfg, params, SLOTS,
+                                          PROMPT_HI + MAX_NEW, rt=rt)
+    step_s, admit_s = [], []
+
+    def timed(fn, into):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            into.append(time.perf_counter() - t0)
+            return out
+        return run
+    batcher.decode_step = timed(batcher.decode_step, step_s)   # ends in a sync
+    batcher._admit = timed(batcher._admit, admit_s)            # ends in a sync
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    finished = serve_mod.serve_dense(batcher, prompts, MAX_NEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    lats = [r.t_done - r.t_submit for r in finished]
+    tokens = sum(len(r.out) for r in finished)
+    ms = np.array(step_s) * 1e3
+    log(f"22a dense: served {len(finished)} requests, {tokens} tokens in "
+        f"{dt:.2f} s: {tokens / dt:.1f} tok/s; latency p50 "
+        f"{np.percentile(lats, 50):.3f} s p99 {np.percentile(lats, 99):.3f} s; "
+        f"{len(step_s)} decode steps, {np.median(ms):.2f} ms median "
+        f"({ms.min():.2f}-{ms.max():.2f}); {len(admit_s)} prefill calls, "
+        f"{len(batcher.prefill_shapes)} distinct shapes, {sum(admit_s):.3f} s "
+        f"(with the splice); peak device memory {peak_gib:.2f} GiB; "
+        f"paged_decode_attention launches {launches['paged_decode_attention']}")
+    if paged_fig is None:
+        log("22a paged: phase 3 not run (--dense-only)")
+    else:
+        log(f"22a paged (phase 3, 2 arrivals a round, a pool that preempts): "
+            f"{paged_fig['tok_s']:.1f} tok/s; latency p50 {paged_fig['p50_s']:.3f} "
+            f"s p99 {paged_fig['p99_s']:.3f} s; {paged_fig['step_ms']:.2f} ms a "
+            f"decode step; {paged_fig['prefill_calls']} prefill calls, "
+            f"{paged_fig['prefill_shapes']} distinct shapes; peak device memory "
+            f"{paged_fig['peak_gib']:.2f} GiB (a reading beside the dense "
+            f"engine's, not a benchmark)")
+    if sorted(r.rid for r in finished) != list(range(N_REQUESTS)):
+        raise AssertionError("dense: not every request finished")
+    if any(len(r.out) != MAX_NEW or not all(0 <= t < cfg.vocab_size for t in r.out)
+           for r in finished):
+        raise AssertionError("dense: a request emitted the wrong number of "
+                             "tokens or a token outside the vocabulary")
+    if any(launches.values()):
+        raise AssertionError(f"the dense engine launched kernels: {launches}")
+    if len(admit_s) != N_REQUESTS or len(batcher.prefill_shapes) != len(
+            {len(p) for p in prompts}):
+        raise AssertionError("dense: one prefill a request, one shape a length")
+
+
+@contextlib.contextmanager
+def unrotated_prefill(layers):
+    """Prefill caches kept whole past the window (``ring_cache`` called
+    with no window): the linear layout, position t at index t, that a
+    rotated ring is held against.  The attention masks are untouched."""
+    ring_cache = layers.ring_cache
+    layers.ring_cache = lambda entries, S, window: ring_cache(entries, S, 0)
+    try:
+        yield
+    finally:
+        layers.ring_cache = ring_cache
+
+
+def phase_dense_rotation(torch, serving, layers, cfg, rt, params):
+    """22c: gemma-2b ``for_long_context()`` (every layer windowed, W
+    8192) at fp32 compute: prefill one prompt of LONG_PROMPT tokens (the
+    rings rotate) and decode LONG_STEPS steps on the rings as they are
+    (no ``pad_cache``); the same prefill kept whole (``unrotated_prefill``),
+    padded, and decoded on the same tokens, where the window is a mask
+    only.  Held: ring against linear within LOGIT_REL["float32"] each
+    step, and ``pad_cache`` refusing the ring.  Logged: each layout
+    against a teacher-forced prefill of the prefix, and the logits' move
+    under a one-ulp scale of one weight leaf (the stack's own noise
+    scale at this length)."""
+    lc = cfg.for_long_context()
+    toks = np.random.RandomState(7).randint(
+        0, lc.vocab_size, (1, LONG_PROMPT + LONG_STEPS)).astype(np.int32)
+    toks = torch.from_numpy(toks).to(rt.device)
+    prefill = serving.make_prefill_step(lc, rt)
+    step = serving.make_serve_step(lc, rt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, ring = prefill(params, toks[:, :LONG_PROMPT])
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    sp = ring["blocks.L0.attn.slot_pos"]
+    if tuple(sp.shape) != (lc.n_layers, 1, lc.window) or int(sp.min()) != \
+            LONG_PROMPT - lc.window or int(sp[0, 0, 0]) == 0:
+        raise AssertionError(f"the prefill did not rotate the rings: "
+                             f"{tuple(sp.shape)}, first slot {int(sp[0, 0, 0])}")
+    with unrotated_prefill(layers):
+        _, linear = prefill(params, toks[:, :LONG_PROMPT])
+    linear = serving.pad_cache(linear, LONG_STEPS)
+    worst = {"ring-linear": 0.0, "ring-teacher": 0.0, "linear-teacher": 0.0}
+    step_ms = []
+    for i in range(LONG_STEPS):
+        pos = torch.full((1,), LONG_PROMPT + i, dtype=torch.int32,
+                         device=rt.device)
+        feed = toks[:, LONG_PROMPT + i:][:, :1]
+        t0 = time.perf_counter()
+        _, lr, ring = step(params, ring, feed, pos)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        _, ll, linear = step(params, linear, feed, pos)
+        ref, _ = prefill(params, toks[:, :LONG_PROMPT + i + 1])
+        ref = ref[:, -1]
+        if i == 0:
+            first_ref = ref
+        if not bool(torch.isfinite(lr).all()):
+            raise AssertionError("rotated-ring logits are not finite")
+        rel = {k: ((a - b).abs().max() / b.abs().max()).item() for k, a, b in
+               (("ring-linear", lr, ll), ("ring-teacher", lr, ref),
+                ("linear-teacher", ll, ref))}
+        worst = {k: max(worst[k], rel[k]) for k in worst}
+        log(f"22c step {i} (position {LONG_PROMPT + i}): max|dlogits|/max|logits| "
+            f"ring vs linear {rel['ring-linear']:.3g}, ring vs teacher-forced "
+            f"prefill {rel['ring-teacher']:.3g}, linear vs teacher-forced "
+            f"{rel['linear-teacher']:.3g}, max|logits| {ref.abs().max().item():.4g}; "
+            f"ring decode {step_ms[-1]:.2f} ms")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    leaf = "blocks.L0.attn.wq"
+    nudged = dict(params, **{leaf: params[leaf] * (1 + 2**-23)})
+    moved, _ = prefill(nudged, toks[:, :LONG_PROMPT + 1])
+    del nudged
+    ulp = ((moved[:, -1] - first_ref).abs().max() / first_ref.abs().max()).item()
+    try:
+        serving.pad_cache(ring, 1)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("pad_cache accepted a rotated ring")
+    bound = LOGIT_REL["float32"]
+    log(f"22c rotated ring ({lc.n_layers} layers, window {lc.window}, prompt "
+        f"{LONG_PROMPT}, fp32) over {LONG_STEPS} steps: worst ring vs linear "
+        f"{worst['ring-linear']:.3g} (bound {bound}); against teacher forcing "
+        f"(a reading) ring {worst['ring-teacher']:.3g}, linear "
+        f"{worst['linear-teacher']:.3g}; {leaf} scaled by 1 + 2^-23 moves the "
+        f"prefill's logits by {ulp:.3g} of max|logits|; prefill "
+        f"{t_prefill:.2f} s; ring decode {np.median(step_ms):.2f} ms median; "
+        f"peak device memory {peak_gib:.2f} GiB (the teacher-forced prefills' "
+        f"fp32 scores, 1 x {lc.n_heads} x {LONG_PROMPT + LONG_STEPS - 1} "
+        f"squared); pad_cache refused the ring: {refused}")
+    if worst["ring-linear"] > bound:
+        raise AssertionError(f"ring decode differs from the linear layout's by "
+                             f"{worst['ring-linear']:.3g}")
+
+
+def phase_dense(torch, kernels, serve_mod, serving, layers, Runtime, cfg, rt,
+                paged_fig):
+    """Phase 22, the dense serving engine at full width: (a) serving at
+    the served bf16 compute, (b) teacher-forced against both paged paths
+    in bf16 and fp32, (c) the rotated ring at long context, (d) its
+    seconds."""
+    t0 = time.perf_counter()
+    params, _ = serve_mod.load_model(cfg, rt, seed=0)
+    phase_dense_serve(torch, kernels, serve_mod, cfg, rt, params, paged_fig)
+    t_a = time.perf_counter()
+    phase_path(torch, cfg, params, Runtime, rt.device, serving, dense=True)
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params32, _ = serve_mod.load_model(cfg32, rt, seed=0)
+    phase_path(torch, cfg32, params32, Runtime, rt.device, serving, dense=True)
+    t_b = time.perf_counter()
+    phase_dense_rotation(torch, serving, layers, cfg32, rt, params32)
+    del params32
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter()
+    log(f"phase 22: {t_c - t0:.1f} s (22a {t_a - t0:.1f} s with the bf16 "
+        f"weights, 22b {t_b - t_a:.1f} s with the fp32 weights, 22c "
+        f"{t_c - t_b:.1f} s)")
 
 
 # ---------------------------------------------------------------------------
@@ -3262,6 +3532,10 @@ def main(argv=None) -> int:
                     help="phases 1 and 20 only (the paper's convnet and the "
                          "two training loops on the engine); prints no "
                          "kernel rows")
+    ap.add_argument("--dense-only", action="store_true",
+                    help="phases 1 and 22 only (the dense serving engine at "
+                         "full width: serving, against both paged paths, the "
+                         "rotated ring at long context); prints no kernel rows")
     ap.add_argument("--ema-only", action="store_true",
                     help="phases 1 and 21 only (EMA shadow parameters on the "
                          "engine at full width, against the interpreter and "
@@ -3304,7 +3578,7 @@ def main(argv=None) -> int:
         libs = {mt_ops.LIB_NAME: [mt_ops.SOURCE]}
     elif args.chains_only or args.ckpt_only or args.data_only:
         libs[mt_ops.LIB_NAME] = [mt_ops.SOURCE]
-    elif not args.paged_only:
+    elif not (args.paged_only or args.dense_only):
         libs.update({mt_ops.LIB_NAME: [mt_ops.SOURCE],
                      sngm.ops.LIB_NAME: [sngm.ops.SOURCE],
                      lars.ops.LIB_NAME: [lars.ops.SOURCE],
@@ -3313,7 +3587,11 @@ def main(argv=None) -> int:
     card = phase_card(torch, build, libs)
     rows, kernel_rows = {}, []
     t_serve = t_kernels = t_train = t_start
-    if args.paged_only:
+    if args.dense_only:
+        phase_dense(torch, kernels, serve_mod, serving, layers, Runtime,
+                    get_config(ARCH), make_runtime("cuda"), None)
+        t_serve = t_kernels = t_train = time.perf_counter()
+    elif args.paged_only:
         err = phase_kernel(torch, ops, ref)
         kernel_rows.append(phase_timing(torch, ops, ref, None, err, 0, None))
     elif args.chains_only:
@@ -3333,7 +3611,8 @@ def main(argv=None) -> int:
         err = phase_kernel(torch, ops, ref)
         rt = make_runtime("cuda")
         cfg = get_config(ARCH)
-        params, launches, step_ms = phase_serve(torch, kernels, serve_mod, cfg, rt)
+        params, launches, paged_fig = phase_serve(torch, kernels, serve_mod,
+                                                  cfg, rt)
         phase_path(torch, cfg, params, Runtime, rt.device, serving)
         del params
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
@@ -3341,7 +3620,9 @@ def main(argv=None) -> int:
         phase_path(torch, cfg32, params32, Runtime, rt.device, serving)
         del params32
         kernel_rows.append(phase_timing(torch, ops, ref, launches, err,
-                                        cfg.n_layers, step_ms))
+                                        cfg.n_layers, paged_fig["step_ms"]))
+        phase_dense(torch, kernels, serve_mod, serving, layers, Runtime, cfg,
+                    rt, paged_fig)
         t_serve = time.perf_counter()
 
         (p, g, u, a), errs = phase_mt_kernels(torch, mt_ops, mt_ref, cfg)
@@ -3380,7 +3661,8 @@ def main(argv=None) -> int:
         t_train = time.perf_counter()
 
     if not (args.paged_only or args.chains_only or args.ckpt_only
-            or args.data_only or args.convnet_only or args.ema_only):
+            or args.data_only or args.convnet_only or args.ema_only
+            or args.dense_only):
         phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
         cases = ops_cases(torch)
         outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)

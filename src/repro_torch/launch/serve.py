@@ -1,8 +1,16 @@
-"""Serving launcher: continuous batching on the paged engine.
+"""Serving launcher: continuous batching on either engine.
 
 A port of ``repro.launch.serve`` with the same flags and the same
-``[serve:paged]`` report lines.  Only ``--engine paged`` is ported (the
-dense ``ContinuousBatcher`` is still to port).  It adds:
+``[serve:paged]`` / ``[serve:dense]`` report lines:
+
+  * ``--engine paged`` (default): ``serving.scheduler.PagedScheduler``,
+    paged KV blocks, COW prefix sharing, bucket-padded batched prefill,
+    chunked decode, preemption under memory pressure.
+  * ``--engine dense``: the slot-spliced ``ContinuousBatcher`` baseline
+    (an O(n_slots x ctx) dense cache, one prefill per request, one host
+    sync per token).
+
+It adds:
 
   * ``--device``: ``cuda`` (the default) or ``cpu``.  Without a card it
     raises unless ``--device cpu`` is given.
@@ -15,13 +23,15 @@ JAX package draws them (no checkpoint is loaded); the JAX launcher
 always draws them from ``PRNGKey(0)``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \\
-        --slots 8 --requests 16 --prompt-len 128 --max-new 64
+        --slots 8 --requests 16 --prompt-len 128 --max-new 64 \\
+        [--engine dense]
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import List, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +42,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (cast_for_compute, count, make_runtime,
                                 materialize, model_defs)
 from repro_torch.models.runtime import Runtime
+from repro_torch.serving.engine import (cache_batch_axes, make_prefill_step,
+                                        make_serve_step, pad_cache,
+                                        sample_logits)
 from repro_torch.serving.paged_cache import n_blocks_for
 from repro_torch.serving.scheduler import PagedScheduler, ServeRequest
 
@@ -83,6 +96,130 @@ def serve(sched: PagedScheduler, prompts: Sequence[np.ndarray],
     return sched.finished
 
 
+@dataclass
+class Request:
+    rid: int
+    prompt: torch.Tensor            # (1, S0) int32 on the serving device
+    max_new: int
+    out: List[int] = field(default_factory=list)
+    done: bool = False
+    t_submit: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching over the DENSE cache: one shared
+    cache of ``n_slots`` sequences decoded in lockstep; an empty slot is
+    refilled from the queue by a prefill of the request alone, whose
+    cache is spliced into the slot's row.  Kept as the baseline the
+    paged engine is held against.  The cache is written in place."""
+
+    def __init__(self, cfg: ModelConfig, params, n_slots: int, ctx_len: int,
+                 *, rt: Runtime, temperature: float = 0.0, top_k: int = 0,
+                 seed: int = 0):
+        self.params = params
+        self.n, self.ctx = n_slots, ctx_len
+        self.device = rt.device
+        self.temperature, self.top_k = temperature, top_k
+        self.prefill = make_prefill_step(cfg, rt)
+        self.step = make_serve_step(cfg, rt, temperature=temperature,
+                                    top_k=top_k)
+        self.slots: List[Optional[Request]] = [None] * n_slots
+        self.cache: Optional[Dict[str, torch.Tensor]] = None
+        # each leaf's request axis, found structurally (engine docstring)
+        self.batch_axes = cache_batch_axes(cfg)
+        self.tok = torch.zeros((n_slots, 1), dtype=torch.int32,
+                               device=self.device)
+        self.pos = torch.zeros((n_slots,), dtype=torch.int32,
+                               device=self.device)
+        self._key = prng.PRNGKey(seed)
+        self._rng_ctr = 0
+        self.prefill_shapes = set()
+
+    def _next_rng(self) -> torch.Tensor:
+        rng = prng.fold_in(self._key, self._rng_ctr)
+        self._rng_ctr += 1
+        return rng
+
+    def _admit(self, req: Request, slot: int) -> None:
+        """Prefill the request alone, splice its cache row into the slot.
+        The widened cache starts as zeros in every leaf (slot_pos too, as
+        in the JAX package), so an empty row attends to its position 0."""
+        S0 = req.prompt.shape[1]
+        self.prefill_shapes.add((1, S0))
+        logits, cache1 = self.prefill(self.params, req.prompt)
+        cache1 = pad_cache(cache1, self.ctx - S0)
+        if self.cache is None:
+            self.cache = {}
+            for name, leaf in cache1.items():
+                ax = self.batch_axes[name]
+                shape = leaf.shape[:ax] + (self.n,) + leaf.shape[ax + 1:]
+                self.cache[name] = torch.zeros(shape, dtype=leaf.dtype,
+                                               device=leaf.device)
+        for name, leaf in cache1.items():
+            ax = self.batch_axes[name]
+            self.cache[name].select(ax, slot).copy_(leaf.squeeze(ax))
+        self.slots[slot] = req
+        if self.temperature == 0.0:
+            nxt = int(torch.argmax(logits[0, -1]))
+        else:
+            nxt = int(sample_logits(logits[:, -1], self._next_rng(),
+                                    self.temperature, self.top_k)[0])
+        req.out.append(nxt)
+        req.t_first = time.monotonic()
+        self.tok[slot, 0] = nxt
+        self.pos[slot] = S0
+
+    def decode_step(self) -> List[Request]:
+        """One lockstep decode step.  Returns the requests that finished
+        on this step (their slots are freed before returning, so callers
+        must use the returned list)."""
+        nxt, _, self.cache = self.step(self.params, self.cache, self.tok,
+                                       self.pos, self._next_rng())
+        self.pos = self.pos + 1
+        toks = nxt.tolist()                      # the step's one host sync
+        finished: List[Request] = []
+        now = time.monotonic()
+        for s, req in enumerate(self.slots):
+            if req is None or req.done:
+                continue
+            req.out.append(toks[s])
+            if len(req.out) >= req.max_new:
+                req.done = True
+                req.t_done = now
+                finished.append(req)
+                self.slots[s] = None
+        self.tok = nxt[:, None]
+        return finished
+
+    def free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slots) if r is None]
+
+
+def serve_dense(batcher: ContinuousBatcher, prompts: Sequence[np.ndarray],
+                max_new: int) -> List[Request]:
+    """Serve ``prompts`` on the dense engine, every request queued at
+    once, refilling free slots before each lockstep decode step; prints
+    the launcher's ``[serve:dense]`` report.  Returns the finished
+    requests in the order they finished."""
+    t0 = time.monotonic()
+    queue = [Request(i, torch.from_numpy(np.asarray(p, np.int32)[None])
+                     .to(batcher.device), max_new, t_submit=t0)
+             for i, p in enumerate(prompts)]
+    finished: List[Request] = []
+    steps = 0
+    while queue or any(s is not None for s in batcher.slots):
+        for s in batcher.free_slots():
+            if queue:
+                batcher._admit(queue.pop(0), s)
+        if any(s is not None for s in batcher.slots):
+            finished += batcher.decode_step()
+            steps += 1
+    report(finished, time.monotonic() - t0, steps, "dense")
+    return finished
+
+
 def report(finished, dt: float, steps: int, label: str):
     total_tokens = sum(len(r.out) for r in finished)
     lats = [r.t_done - r.t_submit for r in finished if r.t_done]
@@ -98,8 +235,7 @@ def report(finished, dt: float, steps: int, label: str):
 def parse_args(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="deepseek-7b", choices=sorted(ARCHS))
-    ap.add_argument("--engine", default="paged", choices=["paged"],
-                    help="the dense engine is not ported yet")
+    ap.add_argument("--engine", default="paged", choices=["paged", "dense"])
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -118,7 +254,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     return ap.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> List[ServeRequest]:
+def main(argv: Optional[Sequence[str]] = None):
+    """Returns the finished requests: ``ServeRequest``s of the paged
+    engine, ``Request``s of the dense one."""
     args = parse_args(argv)
     rt = make_runtime(args.device)
     cfg = get_config(args.arch)
@@ -131,6 +269,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[ServeRequest]:
     rng = np.random.RandomState(args.seed)
     prompts = [rng.randint(0, cfg.vocab_size, (args.prompt_len,))
                .astype(np.int32) for _ in range(args.requests)]
+    if args.engine == "dense":
+        batcher = ContinuousBatcher(cfg, params, args.slots, ctx, rt=rt,
+                                    temperature=args.temperature,
+                                    top_k=args.top_k, seed=args.seed)
+        return serve_dense(batcher, prompts, args.max_new)
     sched = build_scheduler(cfg, params, rt, slots=args.slots,
                             block_size=args.block_size, blocks=args.blocks,
                             ctx=ctx, decode_chunk=args.decode_chunk,

@@ -1,5 +1,6 @@
 """Core layers of the dense decoder: RMSNorm, RoPE, softcap, the gated
-MLP, and GQA attention with its full-sequence and paged-decode modes.
+MLP, and GQA attention with its full-sequence, dense (ring-buffer) and
+paged decode modes.
 
 A port of ``repro.models.layers`` for the archs the serving slice
 covers (dense GQA, sliding window, softcaps, QK-norm).  Parameters of
@@ -119,16 +120,23 @@ def _proj_out(o, w):
 
 
 def ring_cache(entries, S: int, window: int):
-    """Full-sequence cache entries {name: (B,S,...)} plus their implicit
-    positions arange(S).  Only the unrotated case is ported (S <= window
-    or no window), which is all that paged serving keeps."""
-    if window > 0 and S > window:
-        raise NotImplementedError(f"ring-buffer rotation (S={S} > window="
-                                  f"{window}) {NOT_PORTED}")
-    B = next(iter(entries.values())).shape[0]
-    dev = next(iter(entries.values())).device
-    sp = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
-    return {**entries, "slot_pos": sp}
+    """Compress full-seq cache entries {name: (B,S,...)} plus their
+    implicit positions arange(S) into a ring buffer of size ``window``
+    (slot = pos % window), so a windowed layer's decode state is O(W),
+    not O(S).  Without a window, or with S <= window, the entries are
+    kept whole and unrotated."""
+    first = next(iter(entries.values()))
+    B, dev = first.shape[0], first.device
+    if window <= 0 or S <= window:
+        sp = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+        return {**entries, "slot_pos": sp}
+    pos = torch.arange(S - window, S, dtype=torch.int32, device=dev)  # kept
+    slots = (pos % window).long()                  # a permutation of 0..W-1
+    inv = torch.zeros(window, dtype=torch.long, device=dev).index_put_(
+        (slots,), torch.arange(window, device=dev))
+    out = {k: v[:, -window:][:, inv] for k, v in entries.items()}
+    out["slot_pos"] = pos[inv].expand(B, window)
+    return out
 
 
 def _chunk_mask(q0: int, Qc: int, T: int, causal: bool, window: int, device):
@@ -223,12 +231,17 @@ def gqa_attention(p, x, cfg: ModelConfig, *, local: bool, pos, cache=None,
                   build_cache: bool = True):
     """Modes:
       * full-seq (train/prefill): cache=None, pos (B,S) absolute
-        positions; returns the unrotated cache {"k", "v", "slot_pos"},
-        or None with ``build_cache=False`` (training keeps none, and
-        needs no ring rotation when S exceeds the window).
-      * paged decode: cache={"kp","vp","bt"}, x (B,1,d), pos (B,); the
-        pools are written in place and the same dict is returned.
-    Returns (out, cache)."""
+        positions; returns the cache {"k", "v", "slot_pos"} (a ring of
+        the last W positions on a windowed layer when S > W, see
+        ``ring_cache``), or None with ``build_cache=False`` (training
+        keeps none).
+      * dense decode: cache={"k","v","slot_pos"} (B,Sc,...), x (B,1,d),
+        pos (B,) current index; entry and position written at ring
+        slot pos % Sc.
+      * paged decode: cache={"kp","vp","bt"}, x (B,1,d), pos (B,).
+    In both decode modes the cache's tensors are written in place
+    (``index_put_``) and the same dict is returned, where the JAX
+    package returns new arrays.  Returns (out, cache)."""
     if cfg.sdpa_bf16:
         raise NotImplementedError(f"sdpa_bf16 {NOT_PORTED}")
     cdt = getattr(torch, cfg.compute_dtype)
@@ -253,8 +266,19 @@ def gqa_attention(p, x, cfg: ModelConfig, *, local: bool, pos, cache=None,
                      if causal and build_cache else None)
         return _proj_out(o, p["wo"].to(cdt)), new_cache
 
-    if "kp" not in cache:
-        raise NotImplementedError(f"dense ring-cache decode {NOT_PORTED}")
+    if "kp" not in cache:                               # dense ring decode
+        ck, cv, sp = cache["k"], cache["v"], cache["slot_pos"]
+        rows = torch.arange(x.shape[0], device=pos.device)
+        slot = (pos % ck.shape[1]).long()
+        ck.index_put_((rows, slot), k[:, 0].to(ck.dtype))
+        cv.index_put_((rows, slot), v[:, 0].to(cv.dtype))
+        sp.index_put_((rows, slot), pos.to(sp.dtype))
+        valid = (sp >= 0) & (sp <= pos[:, None])
+        if window > 0:
+            valid &= sp > pos[:, None] - window
+        mask = torch.where(valid, 0.0, NEG_INF).float()[:, None, None, :]
+        o = _sdpa(q, ck.to(cdt), cv.to(cdt), mask, cfg.attn_softcap, scale)
+        return _proj_out(o, p["wo"].to(cdt)), cache
     # ---- paged decode (x is (B,1,d)) ----
     kp, vp, bt = cache["kp"], cache["vp"], cache["bt"]
     _paged_write(kp, k, bt, pos)

@@ -14,9 +14,13 @@ encoder-decoder stacks are not ported yet and raise
 Parameters are the flat ``{dotted.path: Tensor}`` dict of
 ``models.param`` ("blocks.L0.attn.wq" has shape (n_periods, d, H, hd)).
 Caches are flat dicts too: prefill returns the dense
-"blocks.L{i}.attn.{k,v,slot_pos}" stacked over periods, and paged
-decode takes and returns "blocks.L{i}.attn.{kp,vp,bt}"
-(``serving.paged_cache``).
+"blocks.L{i}.attn.{k,v,slot_pos}" stacked over periods (a windowed
+layer's a ring of its last W positions once the prompt passes the
+window).  Decode takes either that dense cache (``serving.engine``'s
+``pad_cache`` grows it) or the paged "blocks.L{i}.attn.{kp,vp,bt}"
+(``serving.paged_cache``), told apart by their keys, writes each
+period's entries in place through views of the stacked leaves, and
+returns the same dict.
 """
 from __future__ import annotations
 
@@ -104,8 +108,8 @@ def _sub(p: Dict[str, torch.Tensor], name: str) -> Dict[str, torch.Tensor]:
 def block_apply(p, spec: LayerSpec, h, cfg: ModelConfig, rt: Runtime, *,
                 pos, cache=None, build_cache: bool = True):
     """Returns (h, cache): the dense prefill cache of this layer (None
-    without ``build_cache``), or the paged cache dict it was given
-    (updated in place)."""
+    without ``build_cache``), or the decode cache dict it was given,
+    dense or paged (updated in place)."""
     xin = layers.rmsnorm(p["attn_norm.scale"], h, cfg.norm_eps)
     a, c = layers.gqa_attention(_sub(p, "attn"), xin, cfg,
                                 local=(spec.mixer == "attn_local"), pos=pos,
@@ -127,7 +131,8 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens, *,
 
     train:   tokens (B,S)            -> (final hidden (B,S,d), None)
     prefill: tokens (B,S)            -> (logits (B,1,V), dense cache)
-    decode:  tokens (B,1), pos (B,)  -> (logits (B,1,V), paged cache)
+    decode:  tokens (B,1), pos (B,)  -> (logits (B,1,V), cache), the
+             dense or paged cache it was given, updated in place
 
     ``last_pos`` (B,), prefill only: per-row position whose logits to
     return instead of the last one (bucket-padded batched prefill).
@@ -153,6 +158,8 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens, *,
                                 device=tokens.device).expand(B, S)
 
     per_layer: Dict[str, list] = {}
+    leaves = (("kp", "vp", "bt") if mode == "decode" and
+              "blocks.L0.attn.kp" in cache else ("k", "v", "slot_pos"))
     stacked = {k: v.unbind(0) for k, v in params.items()
                if k.startswith("blocks.")}
     remat = rt.remat and mode == "train"
@@ -162,8 +169,8 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens, *,
             p = {k[len(pre):]: v[i] for k, v in stacked.items()
                  if k.startswith(pre)}
             c_in: Optional[dict] = None
-            if mode == "decode":
-                c_in = {n: cache[f"{pre}attn.{n}"][i] for n in ("kp", "vp", "bt")}
+            if mode == "decode":    # views: in-place writes reach the stack
+                c_in = {n: cache[f"{pre}attn.{n}"][i] for n in leaves}
             if remat:   # per-block remat: one block's internals live in bwd
                 h = checkpoint(lambda pp, hh, spec=spec: block_apply(
                     pp, spec, hh, cfg, rt, pos=rope_pos, build_cache=False)[0],
