@@ -18,8 +18,10 @@ paper's own experiments: the Fig. 1 / Table 2 convnet and the Table 3
 LM proxy through the port's training loops, on the engine; and SNGM
 with EMA shadow parameters (``--ema-decay``) on the engine and through a
 checkpoint; and the dense serving engine (``--engine dense``), against
-both paged paths and on a rotated ring past a long-context window.
-Holds every kernel (11 rows: the deferred apply has its own) against
+both paged paths and on a rotated ring past a long-context window; and
+the DeepSeek-V2 family (MLA attention, capacity-dispatched MoE):
+deepseek-v2-lite-16b served at full width on both engines and trained
+with SNGM on the engine.  Holds every kernel (11 rows: the deferred apply has its own) against
 its plain PyTorch version.
 
     python3 chip_smoke.py
@@ -241,7 +243,39 @@ Phases, each raising on failure:
      turns that alone into ~1e-3 of the max logit, so decode against
      prefill is a reading, not a bound); ``pad_cache`` must refuse the
      rotated cache; peak memory; (d) the phase's seconds;
- 23. one JSON line of kernel timings against their bounds (11 rows;
+ 23. the DeepSeek-V2 family (run after phase 21; no kernel of its own:
+     the reference computes MLA and MoE outside any Pallas kernel, and
+     MLA decode gathers its latent pools in plain PyTorch, so the paged
+     kernel must launch 0 times): (a) deepseek-v2-lite-16b at full width
+     and all 27 layers, bf16, its weights drawn on the card with each
+     matmul leaf cast as it is drawn (seconds, resident and peak
+     memory): 8 requests (prompts 96-480, 32 new tokens) on 8 slots on
+     the paged engine (tok/s, latency p50/p99, ms a decode step, peak
+     memory, a profiled decode chunk) and on the dense engine, the launch
+     counts set to 0 just before each and read just after; the dense
+     engine teacher-forced on the paged tokens, each paged token within
+     ``MOE_REGRET`` of the dense top logit; the two engines' free-running
+     greedy tokens compared at the config's capacity and at capacity 16
+     (logged: under capacity drops the two compute other functions, and
+     the random bf16 stack moves the logits as much between a prefill
+     alone and in a padded batch as under one bf16 step of one weight
+     leaf, both logged); (b) at full width and 2 layers (the dense prefix
+     layer and one MoE layer), one prefill feeding the dense ring and the
+     paged latent pools, 4 decode steps: bitwise in fp32 (bf16 logged);
+     (c) one full-width MoE layer (64 experts, top-6, 2 shared, 4096
+     tokens, fp32): capacity dispatch with nothing dropped against
+     ``moe_ref`` within ``MOE_REL`` of the max, and at capacity factor 1.0
+     on inputs whose router logits are exact (many ties) the card's ids,
+     positions and keep mask equal to the CPU's; the layer's time (bf16)
+     beside ``moe_ref``'s, a reading; (d) depth cut to 1 dense prefix + 3
+     MoE layers (2,254,983,168 params), SNGM on the engine through the
+     launcher's functions, batch 8 x 512 in 2 micro-batches with remat, 4
+     steps: 1 ``chunk_sumsq`` + 1 ``fused_update`` a step, a finite
+     ``aux_loss``, step time, tokens/s, peak memory; and the engine
+     against ``fused=None`` from one state on one set of gradients (2
+     layers), 3 steps, bitwise.  Every line carries the card's name and
+     power limit;
+ 24. one JSON line of kernel timings against their bounds (11 rows;
      flash attention's row is the bf16 gemma-2b prefill), then the JSON
      result line.
 
@@ -257,6 +291,7 @@ device spin before the start event, so the host's enqueue (logged as
     python3 chip_smoke.py --convnet-only  # phases 1 and 20: the paper's convnet
     python3 chip_smoke.py --ema-only    # phases 1 and 21: EMA shadow params
     python3 chip_smoke.py --dense-only  # phases 1 and 22: the dense engine
+    python3 chip_smoke.py --moe-only    # phases 1 and 23: DeepSeek-V2
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -1605,7 +1640,6 @@ def phase_split(torch, run, state, step_s, launches):
 def profile_step(torch, run, state, top=8):
     """One more train step under torch.profiler: the device's busy share
     of the step's wall time and the kernels that take the most of it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     batch = run.data.batch_at(0)
     torch.cuda.synchronize()
@@ -1614,15 +1648,22 @@ def profile_step(torch, run, state, top=8):
         run.step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    log_profile(prof, wall_ms, "profiled step", top)
+
+
+def log_profile(prof, wall_ms, what, top=8):
+    """The device's busy share of a profiled window's wall time and the
+    kernels that take the most of it."""
+    from torch.autograd import DeviceType
     # device-side events only (kernels, copies): a CPU op's device time
     # repeats its kernels'
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms == 0:
-        log("profiled step: the profiler saw no device time (not measured)")
+        log(f"{what}: the profiler saw no device time (not measured)")
         return
-    log(f"profiled step: {wall_ms:.0f} ms wall (profiler on), device busy "
+    log(f"{what}: {wall_ms:.0f} ms wall (profiler on), device busy "
         f"{busy_ms:.0f} ms = {100 * busy_ms / wall_ms:.1f} %, idle "
         f"{100 - 100 * busy_ms / wall_ms:.1f} %; top kernels by device time:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
@@ -3509,6 +3550,513 @@ def phase_ops_timing(torch, rms_ops, rms_ref, fa_ops, fa_ref, cases, errs,
     return picked
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the DeepSeek-V2 family (MLA attention, capacity-dispatched MoE)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_SLOTS, MOE_REQUESTS, MOE_MAX_NEW = 8, 8, 32
+MOE_TOKENS = 4096                    # 23c: one MoE layer's tokens (8 x 512)
+MOE_REL = 5e-5                       # 23c: dispatch vs moe_ref, fp32, of max
+MOE_TRAIN_LAYERS = 4                 # 23d: 1 dense prefix + 3 MoE layers
+
+
+def moe_traffic(vocab: int):
+    """23a's prompts: MOE_REQUESTS lengths drawn in [PROMPT_LO, PROMPT_HI]."""
+    rng = np.random.RandomState(23)
+    return [rng.randint(0, vocab, int(n)).astype(np.int32)
+            for n in rng.randint(PROMPT_LO, PROMPT_HI + 1, MOE_REQUESTS)]
+
+
+def moe_serve_paged(torch, kernels, serve_mod, cfg, params, rt, prompts, card,
+                    label):
+    """The prompts on the paged engine (the scheduler, all queued at once,
+    a pool for every slot at full context), the launch counts set to 0
+    just before and read just after: no kernel of the table may launch.
+    Returns {rid: tokens}."""
+    sched = serve_mod.build_scheduler(cfg, params, rt, slots=MOE_SLOTS,
+                                      block_size=BLOCK_SIZE, blocks=0,
+                                      ctx=PROMPT_HI + MOE_MAX_NEW,
+                                      decode_chunk=DECODE_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    finished = serve_mod.serve(sched, prompts, MOE_MAX_NEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    st = sched.stats
+    lats = [r.t_done - r.t_submit for r in finished]
+    tokens = sum(len(r.out) for r in finished)
+    log(f"[{card}] 23a paged, {label}: {len(finished)} requests (prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))}), {tokens} tokens "
+        f"in {dt:.2f} s: {tokens / dt:.1f} tok/s; latency p50 "
+        f"{np.percentile(lats, 50):.3f} s p99 {np.percentile(lats, 99):.3f} s; "
+        f"{st['decode_steps']} decode steps, "
+        f"{st['decode_s'] / st['decode_steps'] * 1e3:.2f} ms a decode step; "
+        f"prefill {st['prefill_s']:.3f} s in {st['prefill_calls']} calls "
+        f"({len(st['prefill_shapes'])} shapes); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"paged_decode_attention launches {launches['paged_decode_attention']}")
+    if any(launches.values()):
+        raise AssertionError(f"23a paged: kernels launched: {launches}")
+    sched.alloc.check()
+    if sched.alloc.used_blocks:
+        raise AssertionError(f"23a: {sched.alloc.used_blocks} blocks leaked")
+    return moe_tokens(cfg, "paged", finished)
+
+
+def moe_serve_dense(torch, kernels, serve_mod, cfg, params, rt, prompts, card,
+                    label):
+    """The prompts on the dense engine (the launcher's ContinuousBatcher
+    and ``serve_dense``), counts as ``moe_serve_paged``."""
+    batcher = serve_mod.ContinuousBatcher(cfg, params, MOE_SLOTS,
+                                          PROMPT_HI + MOE_MAX_NEW, rt=rt)
+    steps = []
+    decode_step = batcher.decode_step
+
+    def timed_step():
+        t = time.perf_counter()
+        out = decode_step()                      # ends in a host sync
+        steps.append(time.perf_counter() - t)
+        return out
+    batcher.decode_step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    finished = serve_mod.serve_dense(batcher, prompts, MOE_MAX_NEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    lats = [r.t_done - r.t_submit for r in finished]
+    tokens = sum(len(r.out) for r in finished)
+    ms = np.array(steps) * 1e3
+    log(f"[{card}] 23a dense, {label}: {len(finished)} requests, {tokens} tokens "
+        f"in {dt:.2f} s: {tokens / dt:.1f} tok/s; latency p50 "
+        f"{np.percentile(lats, 50):.3f} s p99 {np.percentile(lats, 99):.3f} s; "
+        f"{len(steps)} decode steps, {np.median(ms):.2f} ms median "
+        f"({ms.min():.2f}-{ms.max():.2f}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"paged_decode_attention launches {launches['paged_decode_attention']}")
+    if any(launches.values()):
+        raise AssertionError(f"23a dense: kernels launched: {launches}")
+    return moe_tokens(cfg, "dense", finished)
+
+
+def moe_tokens(cfg, what, finished):
+    if sorted(r.rid for r in finished) != list(range(MOE_REQUESTS)) or any(
+            len(r.out) != MOE_MAX_NEW or not all(0 <= t < cfg.vocab_size
+                                                 for t in r.out)
+            for r in finished):
+        raise AssertionError(f"23a {what}: a request is missing, short or out "
+                             f"of the vocabulary")
+    return {r.rid: list(r.out) for r in finished}
+
+
+def moe_agreement(want, got, card, label):
+    """Dense against paged greedy tokens: (requests equal, first tokens
+    equal, tokens equal), logged."""
+    same = sum(want[rid] == got[rid] for rid in want)
+    first = sum(want[rid][0] == got[rid][0] for rid in want)
+    agree = sum(a == b for rid in want for a, b in zip(want[rid], got[rid]))
+    log(f"[{card}] 23a dense vs paged greedy tokens, {label}: {same}/"
+        f"{MOE_REQUESTS} requests equal, first tokens {first}/{MOE_REQUESTS}, "
+        f"tokens {agree}/{MOE_REQUESTS * MOE_MAX_NEW}")
+    return same, first, agree
+
+
+def moe_profile_decode(torch, serve_mod, cfg, params, rt, prompts, card):
+    """One paged decode chunk (DECODE_CHUNK steps) of 23a's requests under
+    torch.profiler, after their prefill: the device's busy share and the
+    kernels that take the most of it."""
+    from torch.profiler import ProfilerActivity, profile
+    sched = serve_mod.build_scheduler(cfg, params, rt, slots=MOE_SLOTS,
+                                      block_size=BLOCK_SIZE, blocks=0,
+                                      ctx=PROMPT_HI + MOE_MAX_NEW,
+                                      decode_chunk=DECODE_CHUNK)
+    for i, p in enumerate(prompts):
+        sched.submit(serve_mod.ServeRequest(rid=i, prompt=p, max_new=MOE_MAX_NEW))
+    sched.admit()
+    sched.decode()                                   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sched.decode()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log_profile(prof, wall_ms, f"[{card}] 23a profiled paged decode chunk "
+                f"({DECODE_CHUNK} steps)")
+    sched.run()
+
+
+def moe_prefill_noise(torch, serving, cfg, params, rt, prompts, card):
+    """23a, a reading: each prompt's last-position logits from a prefill
+    of the prompt alone (the dense engine's) against its row of one
+    prefill of all prompts right-padded to one length (the paged
+    engine's, ``last_pos``), where nothing drops; beside them, the
+    alone prefill against itself with one weight leaf scaled by one bf16
+    step (the stack's own sensitivity to a rounding)."""
+    prefill = serving.make_prefill_step(cfg, rt)
+    S = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), S), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    last = torch.tensor([len(p) - 1 for p in prompts], device=rt.device)
+    group, _ = prefill(params, torch.from_numpy(toks).to(rt.device), last_pos=last)
+    leaf = "blocks.L0.attn.wo"
+    nudged = dict(params, **{leaf: (params[leaf].float() * (1 + 2**-7))
+                             .to(params[leaf].dtype)})
+    rel = {"group": 0.0, "nudge": 0.0}
+    same = {"group": 0, "nudge": 0}
+    for i, p in enumerate(prompts):
+        t = torch.from_numpy(p[None]).to(rt.device)
+        alone = prefill(params, t)[0][0, -1]
+        for k, other in (("group", group[i, -1]), ("nudge", prefill(nudged, t)[0][0, -1])):
+            rel[k] = max(rel[k], ((other - alone).abs().max() / alone.abs().max()).item())
+            same[k] += int(torch.argmax(other) == torch.argmax(alone))
+    log(f"[{card}] 23a prefill alone vs in a padded batch (capacity factor "
+        f"{cfg.moe.capacity_factor}, nothing drops): worst {rel['group']:.3g} of "
+        f"max|logits|, argmax equal {same['group']}/{len(prompts)}; {leaf} "
+        f"scaled by one bf16 step: {rel['nudge']:.3g}, argmax equal "
+        f"{same['nudge']}/{len(prompts)} (a reading)")
+    return rel
+
+
+# 23a: the dense engine teacher-forced on the paged engine's tokens; each
+# paged token's regret under the dense engine's logits, (top logit - its
+# logit) / max|logits|, must stay below this.  A token the dense engine
+# would not consider sits near the logits' mean, a regret near 1; the two
+# engines' own difference (a prefill alone or in a padded batch, 0.188 of
+# max|logits| on the card, as large as one weight leaf moved by one bf16
+# step, 0.101) allows at most twice that.
+MOE_REGRET = 0.5
+
+
+def moe_teacher_forced(torch, serve_mod, cfg, params, rt, prompts, paged, card):
+    """23a: the dense engine (the ContinuousBatcher: each prompt prefilled
+    alone and spliced into its slot) decoding the paged engine's tokens:
+    the regret of each paged token under the dense logits, at most
+    MOE_REGRET; how often the two engines' argmax agree, logged."""
+    b = serve_mod.ContinuousBatcher(cfg, params, MOE_SLOTS,
+                                    PROMPT_HI + MOE_MAX_NEW, rt=rt)
+    for i, p in enumerate(prompts):
+        b._admit(serve_mod.Request(i, torch.from_numpy(p[None]).to(rt.device),
+                                   MOE_MAX_NEW), i)
+    worst, agree = 0.0, 0
+    for t in range(MOE_MAX_NEW - 1):
+        feed = torch.tensor([[paged[i][t]] for i in range(MOE_SLOTS)],
+                            dtype=torch.int32, device=rt.device)
+        want = torch.tensor([paged[i][t + 1] for i in range(MOE_SLOTS)],
+                            device=rt.device)
+        nxt, logits, b.cache = b.step(params, b.cache, feed, b.pos)
+        b.pos = b.pos + 1
+        regret = ((logits.max(-1).values - logits.gather(1, want[:, None])[:, 0])
+                  / logits.abs().max(-1).values)
+        worst = max(worst, regret.max().item())
+        agree += int((nxt == want).sum())
+    log(f"[{card}] 23a dense engine teacher-forced on the paged tokens "
+        f"(capacity factor {cfg.moe.capacity_factor}): worst regret of a "
+        f"paged token {worst:.3g} of max|logits| (bound {MOE_REGRET}); argmax "
+        f"equal {agree}/{MOE_SLOTS * (MOE_MAX_NEW - 1)}")
+    if worst > MOE_REGRET:
+        raise AssertionError(f"23a: a paged token sits {worst:.3g} of "
+                             f"max|logits| below the dense engine's top")
+    return worst
+
+
+def phase_moe_serve(torch, kernels, serve_mod, cfg, rt, card):
+    """23a: deepseek-v2-lite-16b at full width and depth, bf16, on the
+    paged engine and then the dense one, each with the launch counts set
+    to 0 just before and read just after: no kernel of the table
+    launches (MLA decode gathers its latent pools in plain PyTorch, as
+    the reference does).  The engines' greedy tokens are compared at the
+    config's capacity factor, where they compute other functions (MoE
+    capacity counts the batch: a prompt prefilled alone and the same
+    prompt in a padded bucket drop other assignments, and a decode step's
+    drops depend on every row), and at capacity factor 16, where nothing
+    drops and the two run the same arithmetic on other batch shapes."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, n_params = serve_mod.load_model(cfg, rt, seed=0)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    w_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"[{card}] 23a {cfg.name}: {n_params:,} params drawn on the card from "
+        f"PRNGKey(0), each matmul leaf cast to {cfg.compute_dtype} as it is "
+        f"drawn, in {t_load:.2f} s; {w_gib:.2f} GiB resident, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while drawing")
+    prompts = moe_traffic(cfg.vocab_size)
+    label = f"capacity factor {cfg.moe.capacity_factor}"
+    paged = moe_serve_paged(torch, kernels, serve_mod, cfg, params, rt, prompts,
+                            card, label)
+    moe_profile_decode(torch, serve_mod, cfg, params, rt, prompts, card)
+    dense = moe_serve_dense(torch, kernels, serve_mod, cfg, params, rt, prompts,
+                            card, label)
+    agree = {"config": moe_agreement(paged, dense, card, label)}
+    moe_teacher_forced(torch, serve_mod, cfg, params, rt, prompts, paged, card)
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=16.0))
+    label = "capacity factor 16 (nothing drops)"
+    paged = moe_serve_paged(torch, kernels, serve_mod, nodrop, params, rt,
+                            prompts, card, label)
+    dense = moe_serve_dense(torch, kernels, serve_mod, nodrop, params, rt,
+                            prompts, card, label)
+    agree["nodrop"] = moe_agreement(paged, dense, card, label)
+    from repro_torch import serving
+    moe_prefill_noise(torch, serving, nodrop, params, rt, prompts, card)
+    return params, agree
+
+
+def phase_moe_dense_paged(torch, kernels, serve_mod, serving, cfg, rt, card,
+                          steps=4):
+    """23b: at full width and 2 layers (the dense prefix layer and one MoE
+    layer), one prefill of 8 prompts feeds both the dense ring (padded to
+    the pools' gathered length) and the latent pools; ``steps`` decode
+    steps teacher-forced on the dense engine's tokens: bitwise in fp32
+    (the same ops on the same shapes), bf16 logged."""
+    from repro_torch.serving import paged_cache as pc
+    c = dataclasses.replace(cfg, n_layers=2)
+    params, _ = serve_mod.load_model(c, rt, seed=0)
+    prompts = moe_traffic(c.vocab_size)
+    S = max(len(p) for p in prompts)
+    toks = np.zeros((MOE_SLOTS, S), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    last = np.array([len(p) - 1 for p in prompts], np.int32)
+    logits, prefilled = serving.make_prefill_step(c, rt)(
+        params, torch.from_numpy(toks).to(rt.device),
+        last_pos=torch.from_numpy(last).to(rt.device))
+    nbmax = pc.n_blocks_for(S + steps, BLOCK_SIZE)
+    paged = pc.paged_cache_init(c, MOE_SLOTS, BLOCK_SIZE, 1 + MOE_SLOTS * nbmax,
+                                nbmax, rt.device)
+    for row in range(MOE_SLOTS):
+        ids = list(range(1 + row * nbmax, 1 + (row + 1) * nbmax))[::-1]
+        pc.set_block_table(paged, row, ids)
+        pc.splice_prefill(paged, prefilled, row, row, ids)
+    dense = serving.pad_cache(prefilled, nbmax * BLOCK_SIZE - S)
+    del prefilled
+    step = serving.make_serve_step(c, rt)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    pos = torch.from_numpy(last + 1).to(rt.device)
+    kernels.reset_launches()
+    worst, bitwise, agree = 0.0, True, 0
+    for i in range(steps):
+        nd, ld, dense = step(params, dense, tok, pos)
+        npg, lp, paged = step(params, paged, tok, pos)
+        if not bool(torch.isfinite(ld).all()):
+            raise AssertionError("23b: dense logits are not finite")
+        bitwise &= bool(torch.equal(ld, lp))
+        worst = max(worst, ((ld - lp).abs().max() / ld.abs().max()).item())
+        agree += int((nd == npg).sum())
+        tok, pos = nd[:, None], pos + 1
+    launches = kernels.launch_counts()
+    log(f"[{card}] 23b ({c.compute_dtype}, {c.n_layers} layers, context "
+        f"{nbmax * BLOCK_SIZE}): dense ring vs paged latent pools over {steps} "
+        f"steps: {'bitwise' if bitwise else 'not bitwise'}, worst "
+        f"{worst:.3g} of max|logits|; greedy tokens agree "
+        f"{agree}/{steps * MOE_SLOTS}; kernel launches {sum(launches.values())}")
+    if any(launches.values()):
+        raise AssertionError(f"23b: kernels launched: {launches}")
+    if c.compute_dtype == "float32" and not bitwise:
+        raise AssertionError(f"23b: dense and paged differ in fp32 by {worst:.3g}")
+    return bitwise, worst
+
+
+def phase_moe_layer(torch, cfg, card):
+    """23c: one full-width MoE layer (64 experts, top-6, 2 shared) on
+    MOE_TOKENS tokens, fp32: capacity dispatch with nothing dropped
+    (factor 16) against the dense oracle ``moe_ref`` within MOE_REL of
+    the max; then at capacity factor 1.0 on inputs whose router logits
+    are exact in fp32 (x and the router in {-1, 0, 1}, the router times
+    2^-8, so the card and the CPU sum them to the same bits; tied
+    experts in many rows): the card's ids,
+    capacity positions and keep mask equal the CPU port's.  Times of the
+    layer (bf16, the config's capacity) and of ``moe_ref`` are readings."""
+    from repro_torch import prng
+    from repro_torch.models import materialize, moe
+    dev = torch.device("cuda")
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p = materialize(moe.moe_defs(c32), prng.PRNGKey(3), dev)
+    x = torch.randn((8, MOE_TOKENS // 8, c32.d_model), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    nodrop = dataclasses.replace(c32, moe=dataclasses.replace(c32.moe,
+                                                              capacity_factor=16.0))
+    y, aux = moe.moe_apply(p, x, nodrop)
+    yr, auxr = moe.moe_ref(p, x, nodrop)
+    err = ((y - yr).abs().max() / yr.abs().max()).item()
+    _, _, _, _, keep, cap = moe.dispatch_plan(p["router"], x.reshape(-1, c32.d_model),
+                                              nodrop)
+    log(f"[{card}] 23c one MoE layer ({c32.moe.n_experts} experts, top-"
+        f"{c32.moe.top_k}, {c32.moe.n_shared} shared, {MOE_TOKENS} tokens, "
+        f"fp32): dispatch (capacity {cap}, {int((~keep).sum())} dropped) vs "
+        f"moe_ref {err:.3g} of max|y| (bound {MOE_REL}); aux {aux.item():.6g} "
+        f"vs {auxr.item():.6g}")
+    if err > MOE_REL or not bool(keep.all()) or aux.item() != auxr.item():
+        raise AssertionError(f"23c: dispatch vs moe_ref {err:.3g}")
+    del y, yr
+    one = dataclasses.replace(c32, moe=dataclasses.replace(c32.moe,
+                                                           capacity_factor=1.0))
+    g = np.random.RandomState(5)
+    xq = torch.from_numpy(g.randint(-1, 2, (MOE_TOKENS, c32.d_model))
+                          .astype(np.float32))
+    rq = torch.from_numpy(g.randint(-1, 2, (c32.d_model, c32.moe.n_experts))
+                          .astype(np.float32) * 2.0**-8)
+    card_plan = moe.dispatch_plan(rq.to(dev), xq.to(dev), one)
+    cpu_plan = moe.dispatch_plan(rq, xq, one)
+    ties = int((torch.sort(cpu_plan[0], dim=-1).values.diff(dim=-1) == 0).any(-1).sum())
+    names = ("weights", "ids", "aux", "pos", "keep")
+    diff = [n for n, a, b in zip(names, card_plan[:5], cpu_plan[:5])
+            if n in ("ids", "pos", "keep") and not torch.equal(a.cpu(), b)]
+    n_keep = int(cpu_plan[4].sum())
+    log(f"[{card}] 23c capacity factor 1.0 (capacity {cpu_plan[5]}): the card "
+        f"keeps {int(card_plan[4].sum())} and the CPU {n_keep} of "
+        f"{cpu_plan[4].numel()} assignments; ids, positions, keep "
+        f"{'equal' if not diff else 'differ in ' + ', '.join(diff)}; rows with "
+        f"tied router weights {ties}")
+    if diff or n_keep == cpu_plan[4].numel():
+        raise AssertionError(f"23c: the card's plan differs in {diff} or "
+                             f"nothing dropped")
+    pb = {k: v.bfloat16() if v.dim() == 3 or k.startswith("shared.") else v
+          for k, v in p.items()}
+    xb = x.bfloat16()
+    ms = time_calls(torch, lambda: moe.moe_apply(pb, xb, cfg), n=10)
+    ref_ms = time_calls(torch, lambda: moe.moe_ref(pb, xb, cfg), n=5)
+    log(f"[{card}] 23c one MoE layer at bf16, capacity factor "
+        f"{cfg.moe.capacity_factor}: {ms:.3f} ms (moe_ref, every expert on every "
+        f"token: {ref_ms:.3f} ms), a reading")
+    return err, ms
+
+
+def phase_moe_train(torch, kernels, train_mod, card):
+    """23d: deepseek-v2-lite-16b at full width, depth cut to 1 dense prefix
+    layer + 3 MoE layers, SNGM on the engine through the launcher's own
+    ``build``/``train`` (batch 8 x 512 in 2 micro-batches, remat, wd
+    1e-4), 4 steps, the launch counts set to 0 just before and read just
+    after: 1 chunk_sumsq + 1 fused_update a step; aux_loss finite."""
+    args = train_mod.parse_args(
+        ["--arch", MOE_ARCH, "--steps", "4", "--batch", "8", "--seq", "512",
+         "--n-micro", "2", "--weight-decay", "1e-4", "--log-every", "1",
+         "--device", "cuda", "--seed", "0", "--optimizer", "sngm", "--fused",
+         "multi_tensor"])
+    t0 = time.perf_counter()
+    with depth_cut(train_mod, MOE_TRAIN_LAYERS):
+        run = train_mod.build(args)
+    torch.cuda.synchronize()
+    log(f"[{card}] 23d {run.cfg.name} at {run.cfg.n_layers} layers: "
+        f"{run.n_params:,} fp32 params, built in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    state, mem = train_mod.train(args, run)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    recs = [m for _, m in mem.steps]
+    want = {k: (args.steps if k in ("chunk_sumsq", "fused_update") else 0)
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"23d: launches {launches}, want {want}")
+    if len(recs) != args.steps or not all(
+            np.isfinite(m[k]) for m in recs
+            for k in ("loss", "grad_norm", "lr", "aux_loss")):
+        raise AssertionError(f"23d: missing or non-finite stats {recs}")
+    steady = [m["step_time_s"] for m in recs[1:]]
+    step_s = float(np.median(steady))
+    losses = ", ".join(f"{m['loss']:.4f}" for m in recs)
+    auxes = ", ".join(f"{m['aux_loss']:.6f}" for m in recs)
+    log(f"[{card}] 23d SNGM on the engine, 4 steps: losses {losses}; "
+        f"aux_loss {auxes}; step 0 {recs[0]['step_time_s']:.3f} s, then "
+        f"{', '.join(f'{s:.3f}' for s in steady)} s; median {step_s:.3f} s = "
+        f"{args.batch * args.seq / step_s:.0f} tokens/s; peak device memory "
+        f"{peak_gib:.2f} GiB; launches per step: chunk_sumsq "
+        f"{launches['chunk_sumsq'] / args.steps:g}, fused_update "
+        f"{launches['fused_update'] / args.steps:g}")
+    del run, state, mem
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, step_s, peak_gib
+
+
+def phase_moe_engine_vs_plain(torch, cfg, card, n_layers=2, steps=3):
+    """23d: SNGM on the engine against ``fused=None`` from one state on one
+    set of full-width gradients (a backward pass of the DeepSeek stack),
+    ``steps`` steps: params, momentum and stats bitwise.  Depth cut to 2
+    layers (the prefix layer and one MoE layer), as phase 10 does, to
+    hold both states and the plain path's temporaries side by side."""
+    from repro_torch import prng
+    from repro_torch.core.optim import make_optimizer
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Runtime, materialize, model_defs
+    from repro_torch.training.step import _grad_leaves, loss_fn
+    dev = torch.device("cuda")
+    c = dataclasses.replace(cfg, n_layers=n_layers)
+    params = materialize(model_defs(c), prng.PRNGKey(1), dev)
+    sched = {"name": "poly_power", "kwargs": {"lr0": 1.6, "total_steps": 4}}
+    opts = [make_optimizer("sngm", sched, weight_decay=1e-4, fused=f, beta=0.9)
+            for f in (None, "multi_tensor")]
+    states = [opts[0].init_state({k: v.clone() for k, v in params.items()}),
+              opts[1].init_state(params)]
+    del params
+    leaves, grads = _grad_leaves(opts[1].init_state(states[1].params_view))
+    batch = SyntheticLM(c.vocab_size, 512, 2, seed=1, device=dev).batch_at(0)
+    loss, metrics = loss_fn(leaves, batch, c, Runtime(dev, remat=True))
+    loss.backward()
+    del leaves
+    for t in range(steps):
+        outs = [o.step_state(g, s) for o, s, g in
+                zip(opts, states, (grads.tree, grads))]
+        states = [s for s, _ in outs]
+        sa, sb = (st for _, st in outs)
+        pa, pb = (s.params_view for s in states)
+        same = (all(same_bits(torch, sa[k], sb[k]) for k in sa)
+                and all(same_bits(torch, pa[k], pb[k]) for k in pa)
+                and all(same_bits(torch, ua[k], ub[k])
+                        for ua, ub in zip(*map(opt_slots, states)) for k in ua))
+        if not same:
+            raise AssertionError(f"23d: fused=None and the engine differ at "
+                                 f"step {t}")
+    log(f"[{card}] 23d SNGM engine vs fused=None on one set of gradients "
+        f"({c.n_layers} layers, loss {loss.item():.4f}, aux_loss "
+        f"{metrics['aux_loss'].item():.6f}): bitwise over {steps} steps "
+        f"(params, momentum, stats)")
+    del states, outs, grads
+
+
+def phase_moe(torch, kernels, serve_mod, train_mod, serving, card):
+    """Phase 23, 23a-23d, each sub-phase's seconds logged."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_runtime
+    cfg = get_config(MOE_ARCH)
+    rt = make_runtime("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params, agree = phase_moe_serve(torch, kernels, serve_mod, cfg, rt, card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        phase_moe_dense_paged(torch, kernels, serve_mod, serving,
+                              dataclasses.replace(cfg, compute_dtype=dtype), rt,
+                              card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    phase_moe_layer(torch, cfg, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter()
+    phase_moe_train(torch, kernels, train_mod, card)
+    phase_moe_engine_vs_plain(torch, cfg, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_d = time.perf_counter()
+    log(f"[{card}] phase 23: {t_d - t0:.1f} s (23a {t_a - t0:.1f} s, 23b "
+        f"{t_b - t_a:.1f} s, 23c {t_c - t_b:.1f} s, 23d {t_d - t_c:.1f} s)")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="On-card smoke run of the port.")
@@ -3536,6 +4084,11 @@ def main(argv=None) -> int:
                     help="phases 1 and 22 only (the dense serving engine at "
                          "full width: serving, against both paged paths, the "
                          "rotated ring at long context); prints no kernel rows")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="phases 1 and 23 only (the DeepSeek-V2 family at full "
+                         "width: serving on both engines, dense vs paged, one "
+                         "MoE layer, SNGM training on the engine); prints no "
+                         "kernel rows")
     ap.add_argument("--ema-only", action="store_true",
                     help="phases 1 and 21 only (EMA shadow parameters on the "
                          "engine at full width, against the interpreter and "
@@ -3574,7 +4127,7 @@ def main(argv=None) -> int:
     lars = SimpleNamespace(ops=lars_ops, ref=lars_ref)
     t_start = time.perf_counter()
     libs = {"paged_attention": [ops.SOURCE]}
-    if args.convnet_only or args.ema_only:
+    if args.convnet_only or args.ema_only or args.moe_only:
         libs = {mt_ops.LIB_NAME: [mt_ops.SOURCE]}
     elif args.chains_only or args.ckpt_only or args.data_only:
         libs[mt_ops.LIB_NAME] = [mt_ops.SOURCE]
@@ -3607,6 +4160,8 @@ def main(argv=None) -> int:
         phase_convnet(torch, kernels)
     elif args.ema_only:
         phase_ema(torch, kernels, train_mod, get_config(ARCH))
+    elif args.moe_only:
+        phase_moe(torch, kernels, serve_mod, train_mod, serving, card)
     elif not args.ops_only:
         err = phase_kernel(torch, ops, ref)
         rt = make_runtime("cuda")
@@ -3658,11 +4213,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase_convnet(torch, kernels)
         phase_ema(torch, kernels, train_mod, cfg)
+        phase_moe(torch, kernels, serve_mod, train_mod, serving, card)
         t_train = time.perf_counter()
 
     if not (args.paged_only or args.chains_only or args.ckpt_only
             or args.data_only or args.convnet_only or args.ema_only
-            or args.dense_only):
+            or args.dense_only or args.moe_only):
         phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
         cases = ops_cases(torch)
         outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)

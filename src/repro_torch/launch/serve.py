@@ -39,8 +39,8 @@ import torch
 from repro_torch import prng
 from repro_torch.configs import ARCHS, get_config, smoke_variant
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import (cast_for_compute, count, make_runtime,
-                                materialize, model_defs)
+from repro_torch.models import count, make_runtime, materialize, model_defs
+from repro_torch.models.transformer import compute_cast
 from repro_torch.models.runtime import Runtime
 from repro_torch.serving.engine import (cache_batch_axes, make_prefill_step,
                                         make_serve_step, pad_cache,
@@ -51,10 +51,13 @@ from repro_torch.serving.scheduler import PagedScheduler, ServeRequest
 
 def load_model(cfg: ModelConfig, rt: Runtime, seed: int):
     """Random weights for ``cfg`` on ``rt.device``, matmul weights cast
-    once to the compute dtype.  Returns (params, n_params)."""
+    to the compute dtype as each is drawn (the bits of
+    ``cast_for_compute`` on the whole fp32 tree, without ever holding
+    it: deepseek-v2-lite-16b's is 63 GB).  Returns (params, n_params)."""
     defs = model_defs(cfg)
-    params = materialize(defs, prng.PRNGKey(seed), rt.device)
-    return cast_for_compute(params, cfg), count(defs)
+    params = materialize(defs, prng.PRNGKey(seed), rt.device,
+                         cast=compute_cast(cfg))
+    return params, count(defs)
 
 
 def build_scheduler(cfg: ModelConfig, params, rt: Runtime, *, slots: int,

@@ -1,9 +1,9 @@
-"""Core layers of the dense decoder: RMSNorm, RoPE, softcap, the gated
-MLP, and GQA attention with its full-sequence, dense (ring-buffer) and
-paged decode modes.
+"""Core layers of the decoder: RMSNorm, RoPE, softcap, the gated MLP,
+GQA attention and DeepSeek-V2's multi-head latent attention (MLA), each
+with its full-sequence, dense (ring-buffer) and paged decode modes.
 
-A port of ``repro.models.layers`` for the archs the serving slice
-covers (dense GQA, sliding window, softcaps, QK-norm).  Parameters of
+A port of ``repro.models.layers`` for the decoder-only archs (dense
+GQA, sliding window, softcaps, QK-norm, MLA).  Parameters of
 one block arrive as a flat dict keyed by the leaf name under the block
 ("wq", "scale", ...).  Numerics follow the JAX package: fp32 norms,
 RoPE and softmax, matmuls in the compute dtype; each function says
@@ -89,6 +89,27 @@ def mlp(p, x, cfg: ModelConfig):
 def attention_defs(cfg: ModelConfig):
     d, H, K = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk_hd = m.qk_nope_dim + m.qk_rope_dim
+        defs = {
+            "wkv_a": ParamDef((d, m.kv_lora_rank + m.qk_rope_dim),
+                              ("embed", "kv_lora_in")),
+            "kv_norm": ParamDef((m.kv_lora_rank,), ("norm",), "ones"),
+            "wk_b": ParamDef((m.kv_lora_rank, H, m.qk_nope_dim),
+                             ("kv_lora", "heads", "head_dim")),
+            "wv_b": ParamDef((m.kv_lora_rank, H, m.v_head_dim),
+                             ("kv_lora", "heads", "head_dim")),
+            "wo": ParamDef((H, m.v_head_dim, d), ("heads", "head_dim", "embed")),
+        }
+        if m.q_lora_rank:
+            defs["wq_a"] = ParamDef((d, m.q_lora_rank), ("embed", "q_lora"))
+            defs["q_norm"] = ParamDef((m.q_lora_rank,), ("norm",), "ones")
+            defs["wq_b"] = ParamDef((m.q_lora_rank, H, qk_hd),
+                                    ("q_lora", "heads", "head_dim"))
+        else:
+            defs["wq"] = ParamDef((d, H, qk_hd), ("embed", "heads", "head_dim"))
+        return defs
     defs = {
         "wq": ParamDef((d, H, hd), ("embed", "heads", "head_dim")),
         "wk": ParamDef((d, K, hd), ("embed", "kv_heads", "head_dim")),
@@ -293,3 +314,104 @@ def gqa_attention(p, x, cfg: ModelConfig, *, local: bool, pos, cache=None,
         mask = torch.where(valid, 0.0, NEG_INF).float()[:, None, None, :]
         o = _sdpa(q, kd.to(cdt), vd.to(cdt), mask, cfg.attn_softcap, scale)
     return _proj_out(o.to(cdt), p["wo"].to(cdt)), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def _mla_q(p, xc, cfg: ModelConfig, cdt):
+    m = cfg.mla
+    if m.q_lora_rank:
+        ql = rmsnorm(p["q_norm"], xc @ p["wq_a"].to(cdt), cfg.norm_eps)
+        q = _proj_in(ql.to(cdt), p["wq_b"].to(cdt))
+    else:
+        q = _proj_in(xc, p["wq"].to(cdt))
+    return q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+
+
+def _mla_absorbed(p, q_nope, q_rope, ckv, kr, valid, cfg: ModelConfig, cdt,
+                  scale):
+    """Absorbed decode attention in the kv_lora latent space, the same
+    ops for the dense ring and the paged gather.  q_nope (B,1,H,nope),
+    q_rope (B,1,H,rr); ckv (B,T,r) and kr (B,T,rr) the cached latents;
+    valid (B,T).  Scores and softmax in fp32, the probabilities cast to
+    the compute dtype for the context product, as in the JAX package."""
+    q_lat = torch.einsum("bskh,rkh->bskr", q_nope, p["wk_b"].to(cdt))
+    s = torch.einsum("bskr,btr->bkst", q_lat.float(), ckv.float())
+    s = s + torch.einsum("bskh,bth->bkst", q_rope.float(), kr.float())
+    s = s * scale
+    s = softcap(s, cfg.attn_softcap) + \
+        torch.where(valid, 0.0, NEG_INF).float()[:, None, None, :]
+    prob = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bkst,btr->bskr", prob.to(cdt), ckv.to(cdt))
+    o = torch.einsum("bskr,rkh->bskh", ctx, p["wv_b"].to(cdt))  # (B,1,H,vhd)
+    return _proj_out(o, p["wo"].to(cdt))
+
+
+def mla_attention(p, x, cfg: ModelConfig, *, local: bool, pos, cache=None,
+                  build_cache: bool = True):
+    """MLA.  Modes, as ``gqa_attention``'s:
+      * full-seq: K/V decompressed from the latent (standard MHA form,
+        the shared RoPE key broadcast over the heads); the cache is
+        {"ckv", "krope", "slot_pos"} (``ring_cache``), only the latents;
+      * dense decode: cache={"ckv","krope","slot_pos"}, written at ring
+        slot pos % Sc in place, then absorbed attention;
+      * paged decode: cache={"ckvp","kropep","bt"}, the latent pools
+        (n_blocks, bs, r) / (n_blocks, bs, rr), written and gathered
+        through the block table in plain PyTorch, as the JAX package
+        does (no paged-attention kernel serves MLA).
+    Returns (out, cache)."""
+    if cfg.sdpa_bf16:
+        raise NotImplementedError(f"sdpa_bf16 {NOT_PORTED}")
+    cdt = getattr(torch, cfg.compute_dtype)
+    m = cfg.mla
+    H = cfg.n_heads
+    B = x.shape[0]
+    xc = x.to(cdt)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    window = cfg.window if local else 0
+
+    q_nope, q_rope = _mla_q(p, xc, cfg, cdt)
+    kv_a = xc @ p["wkv_a"].to(cdt)                         # (B,S,lora+rope)
+    ckv = rmsnorm(p["kv_norm"], kv_a[..., :m.kv_lora_rank],
+                  cfg.norm_eps).to(cdt)
+    k_rope = kv_a[..., m.kv_lora_rank:]                    # shared by the heads
+
+    pos2 = pos if pos.dim() == 2 else pos[:, None]
+    q_rope = rope(q_rope, pos2, cfg.rope_theta)
+    k_rope = rope(k_rope[..., None, :], pos2, cfg.rope_theta)[..., 0, :]
+
+    if cache is None:                                   # full sequence
+        S = x.shape[1]
+        k_nope = _proj_in(ckv, p["wk_b"].to(cdt))
+        v = _proj_in(ckv, p["wv_b"].to(cdt))
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            B, S, H, m.qk_rope_dim)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)            # (B,S,H,qk)
+        o = _sdpa_seq(q, k, v, True, window, cfg.attn_softcap, scale)
+        new_cache = (ring_cache({"ckv": ckv, "krope": k_rope}, S, window)
+                     if build_cache else None)
+        return _proj_out(o, p["wo"].to(cdt)), new_cache
+
+    if "ckvp" in cache:                                 # paged latent pools
+        ckvp, kropep, bt = cache["ckvp"], cache["kropep"], cache["bt"]
+        _paged_write(ckvp, ckv, bt, pos)
+        _paged_write(kropep, k_rope, bt, pos)
+        ckv_d = _paged_gather(ckvp, bt)                   # (B, T, r)
+        kr_d = _paged_gather(kropep, bt)                  # (B, T, rr)
+        valid = _paged_valid(pos, ckv_d.shape[1], window)
+        return _mla_absorbed(p, q_nope, q_rope, ckv_d, kr_d, valid, cfg, cdt,
+                             scale), cache
+    # dense ring decode
+    cc, ck, sp = cache["ckv"], cache["krope"], cache["slot_pos"]
+    rows = torch.arange(B, device=pos.device)
+    slot = (pos % cc.shape[1]).long()
+    cc.index_put_((rows, slot), ckv[:, 0].to(cc.dtype))
+    ck.index_put_((rows, slot), k_rope[:, 0].to(ck.dtype))
+    sp.index_put_((rows, slot), pos.to(sp.dtype))
+    valid = (sp >= 0) & (sp <= pos[:, None])
+    if window > 0:
+        valid &= sp > pos[:, None] - window
+    return _mla_absorbed(p, q_nope, q_rope, cc, ck, valid, cfg, cdt,
+                         scale), cache

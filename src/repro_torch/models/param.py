@@ -71,12 +71,15 @@ def _path_hash(path: str) -> int:
     return zlib.crc32(jax_path.encode()) & 0x7FFFFFFF
 
 
-def materialize(tree, key: torch.Tensor,
-                device: torch.device) -> Dict[str, torch.Tensor]:
+def materialize(tree, key: torch.Tensor, device: torch.device,
+                cast=None) -> Dict[str, torch.Tensor]:
     """Initialize every leaf on ``device`` from ``fold_in(key,
     _path_hash(path))``, as the JAX ``materialize`` does from the same
     key.  The fan-in is read from the leaf's stacked shape, exactly as
-    the JAX ``materialize`` reads it."""
+    the JAX ``materialize`` reads it.  ``cast(path, tensor)``, if given,
+    is applied to each leaf as soon as it is drawn (the serving launcher
+    casts matmul weights to the compute dtype there), so the peak is the
+    tree so far plus one leaf as drawn."""
     out = {}
     for path, d in flatten_defs(tree).items():
         if d.init == "zeros":
@@ -92,7 +95,8 @@ def materialize(tree, key: torch.Tensor,
             scale = d.scale if d.scale >= 0 else 1.0 / math.sqrt(_fan_in(d))
             leaf_key = prng.fold_in(key, _path_hash(path))
             t = prng.normal(leaf_key, d.shape, device).mul_(scale).to(d.dtype)
-        out[path] = t
+        out[path] = t if cast is None else cast(path, t)
+        del t
     return out
 
 

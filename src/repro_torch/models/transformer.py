@@ -1,23 +1,27 @@
-"""Model assembly for the dense decoder stacks, built from the layers.
+"""Model assembly for the decoder-only stacks, built from the layers.
 
 A port of ``repro.models.transformer``: ``model_defs``, ``block_apply``
-(attention plus dense FFN) and ``forward`` in ``train``, ``prefill``
-and ``decode`` modes.  The JAX package scans the stacked layer period
-with ``lax.scan``; here a Python loop walks the stacked leading dim,
-split once with ``unbind`` so that the backward pass stacks each leaf's
-gradient in one piece.  Per-block remat (``Runtime.remat``) is
-``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``; its
-sqrt-remat grouping of periods is not ported.  MoE, MLA, SSM and
-encoder-decoder stacks are not ported yet and raise
+(GQA or MLA attention, then a dense or MoE FFN) and ``forward`` in
+``train``, ``prefill`` and ``decode`` modes.  The JAX package scans the
+stacked layer period with ``lax.scan``; here a Python loop walks the
+stacked leading dim, split once with ``unbind`` so that the backward
+pass stacks each leaf's gradient in one piece.  Leading prefix layers
+(DeepSeek-V2's dense first layer, ``layer_pattern``) are unrolled
+before the periods and carry no stacked dim.  Per-block remat
+(``Runtime.remat``) is ``torch.utils.checkpoint``, the JAX package's
+``jax.checkpoint``; its sqrt-remat grouping of periods is not ported.
+SSM and encoder-decoder stacks are not ported yet and raise
 ``NotImplementedError``.
 
 Parameters are the flat ``{dotted.path: Tensor}`` dict of
-``models.param`` ("blocks.L0.attn.wq" has shape (n_periods, d, H, hd)).
-Caches are flat dicts too: prefill returns the dense
-"blocks.L{i}.attn.{k,v,slot_pos}" stacked over periods (a windowed
-layer's a ring of its last W positions once the prompt passes the
-window).  Decode takes either that dense cache (``serving.engine``'s
-``pad_cache`` grows it) or the paged "blocks.L{i}.attn.{kp,vp,bt}"
+``models.param`` ("blocks.L0.attn.wq" has shape (n_periods, d, H, hd);
+"prefix.P0.attn.wq" has none).  Caches are flat dicts too: prefill
+returns each attention layer's dense cache, "blocks.L{i}.attn.{k,v,
+slot_pos}" stacked over periods (MLA: "{ckv,krope,slot_pos}", the
+latents only), "prefix.P{i}.attn.*" unstacked; a windowed layer keeps a
+ring of its last W positions once the prompt passes the window.  Decode
+takes either that dense cache (``serving.engine``'s ``pad_cache`` grows
+it) or the paged one, "{kp,vp,bt}" / MLA "{ckvp,kropep,bt}"
 (``serving.paged_cache``), told apart by their keys, writes each
 period's entries in place through views of the stacked leaves, and
 returns the same dict.
@@ -30,17 +34,19 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, layer_pattern
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.param import ParamDef, map_defs, stack
 from repro_torch.models.runtime import Runtime
 
-MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+# matmul weights, cast once to the compute dtype (``cast_for_compute``);
+# MoE's router stays fp32 (the JAX package routes from fp32 logits), and
+# the norm scales (kv_norm, q_norm, ...) stay as stored
+MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd",
+                 "wkv_a", "wk_b", "wv_b", "wq_a", "wq_b")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    for what, present in (("MoE", cfg.moe is not None),
-                          ("MLA", cfg.mla is not None),
-                          ("SSM", cfg.ssm is not None),
+    for what, present in (("SSM", cfg.ssm is not None),
                           ("encoder-decoder", cfg.is_encoder_decoder)):
         if present:
             raise NotImplementedError(
@@ -53,22 +59,29 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def block_defs(cfg: ModelConfig, spec: LayerSpec):
-    return {"attn_norm": layers.rmsnorm_defs(cfg.d_model),
-            "attn": layers.attention_defs(cfg),
-            "ffn_norm": layers.rmsnorm_defs(cfg.d_model),
-            "ffn": layers.mlp_defs(cfg, cfg.d_ff)}
+    d = {"attn_norm": layers.rmsnorm_defs(cfg.d_model),
+         "attn": layers.attention_defs(cfg),
+         "ffn_norm": layers.rmsnorm_defs(cfg.d_model)}
+    if spec.ffn == "moe":
+        d["moe"] = moe.moe_defs(cfg)
+    else:
+        d["ffn"] = layers.mlp_defs(cfg, cfg.d_ff)
+    return d
 
 
 def model_defs(cfg: ModelConfig):
     check_supported(cfg)
-    _, period, n_periods = layer_pattern(cfg)
+    prefix, period, n_periods = layer_pattern(cfg)
     defs = {
         "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab_table", "embed"),
                           "embed", scale=0.02),
         "final_norm": layers.rmsnorm_defs(cfg.d_model),
-        "blocks": stack({f"L{i}": block_defs(cfg, s)
-                         for i, s in enumerate(period)}, n_periods),
     }
+    if prefix:
+        defs["prefix"] = {f"P{i}": block_defs(cfg, s)
+                          for i, s in enumerate(prefix)}
+    defs["blocks"] = stack({f"L{i}": block_defs(cfg, s)
+                            for i, s in enumerate(period)}, n_periods)
     if not cfg.tie_embeddings:
         defs["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size),
                                    ("embed", "vocab"), scale=0.02)
@@ -86,9 +99,19 @@ def cast_for_compute(params: Dict[str, torch.Tensor],
     re-reading the fp32 weights on every decode step.  Norm scales and
     the embedding stay as stored: the logits are an fp32 product with
     the embedding, and the token gather casts after the lookup."""
+    cast = compute_cast(cfg)
+    return {k: cast(k, v) for k, v in params.items()}
+
+
+def compute_cast(cfg: ModelConfig):
+    """``cast(path, tensor)``: the tensor in the compute dtype if the leaf
+    is a matmul weight, else as it is.  ``materialize(..., cast=)`` applies
+    it to each leaf as it is drawn, so the whole fp32 tree never exists."""
     cdt = getattr(torch, cfg.compute_dtype)
-    return {k: v.to(cdt) if k.rsplit(".", 1)[-1] in MATMUL_LEAVES else v
-            for k, v in params.items()}
+
+    def cast(path: str, t: torch.Tensor) -> torch.Tensor:
+        return t.to(cdt) if path.rsplit(".", 1)[-1] in MATMUL_LEAVES else t
+    return cast
 
 
 def unembed_matrix(params):
@@ -107,18 +130,30 @@ def _sub(p: Dict[str, torch.Tensor], name: str) -> Dict[str, torch.Tensor]:
 
 def block_apply(p, spec: LayerSpec, h, cfg: ModelConfig, rt: Runtime, *,
                 pos, cache=None, build_cache: bool = True):
-    """Returns (h, cache): the dense prefill cache of this layer (None
-    without ``build_cache``), or the decode cache dict it was given,
-    dense or paged (updated in place)."""
+    """Returns (h, cache, aux): the dense prefill cache of this layer
+    (None without ``build_cache``), or the decode cache dict it was
+    given, dense or paged (updated in place); and the MoE load-balance
+    loss (a zero fp32 scalar for a dense FFN)."""
     xin = layers.rmsnorm(p["attn_norm.scale"], h, cfg.norm_eps)
-    a, c = layers.gqa_attention(_sub(p, "attn"), xin, cfg,
-                                local=(spec.mixer == "attn_local"), pos=pos,
-                                cache=cache, paged_kernel=rt.paged_kernel,
-                                build_cache=build_cache)
+    local = spec.mixer == "attn_local"
+    if cfg.mla is not None:
+        a, c = layers.mla_attention(_sub(p, "attn"), xin, cfg, local=local,
+                                    pos=pos, cache=cache,
+                                    build_cache=build_cache)
+    else:
+        a, c = layers.gqa_attention(_sub(p, "attn"), xin, cfg, local=local,
+                                    pos=pos, cache=cache,
+                                    paged_kernel=rt.paged_kernel,
+                                    build_cache=build_cache)
     h = h + a.to(h.dtype)
     xin = layers.rmsnorm(p["ffn_norm.scale"], h, cfg.norm_eps)
-    h = h + layers.mlp(_sub(p, "ffn"), xin, cfg).to(h.dtype)
-    return h, c
+    if spec.ffn == "moe":
+        y, aux = moe.moe_apply(_sub(p, "moe"), xin, cfg)
+    else:
+        y = layers.mlp(_sub(p, "ffn"), xin, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h = h + y.to(h.dtype)
+    return h, c, aux
 
 
 # ---------------------------------------------------------------------------
@@ -129,11 +164,14 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens, *,
             mode: str, cache=None, pos=None, last_pos=None):
     """mode: "train" | "prefill" | "decode".
 
-    train:   tokens (B,S)            -> (final hidden (B,S,d), None)
+    train:   tokens (B,S)            -> (final hidden (B,S,d), aux)
     prefill: tokens (B,S)            -> (logits (B,1,V), dense cache)
     decode:  tokens (B,1), pos (B,)  -> (logits (B,1,V), cache), the
              dense or paged cache it was given, updated in place
 
+    ``aux`` is the sum of the MoE layers' load-balance losses, an fp32
+    scalar (0 without MoE); the JAX package returns it in every mode,
+    serving has no use for it, so only train mode returns it here.
     ``last_pos`` (B,), prefill only: per-row position whose logits to
     return instead of the last one (bucket-padded batched prefill).
     Train mode returns the hidden states: the loss projects them onto
@@ -142,7 +180,7 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens, *,
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"forward mode {mode!r}")
     check_supported(cfg)
-    _, period, n_periods = layer_pattern(cfg)
+    prefix, period, n_periods = layer_pattern(cfg)
     B, S = tokens.shape
     cdt = getattr(torch, cfg.compute_dtype)
 
@@ -157,12 +195,34 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens, *,
         rope_pos = torch.arange(S, dtype=torch.int32,
                                 device=tokens.device).expand(B, S)
 
+    remat = rt.remat and mode == "train"
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    new_cache: Dict[str, torch.Tensor] = {}
+
+    def run(p, spec, hh, c_in):
+        if remat:   # per-block remat: one block's internals live in bwd
+            hh, aux = checkpoint(lambda pp, x, spec=spec: block_apply(
+                pp, spec, x, cfg, rt, pos=rope_pos, build_cache=False)[::2],
+                p, hh, use_reentrant=False)
+            return hh, None, aux
+        return block_apply(p, spec, hh, cfg, rt, pos=rope_pos, cache=c_in,
+                           build_cache=mode != "train")
+
+    # --- unrolled prefix layers ---
+    for i, spec in enumerate(prefix):
+        pre = f"prefix.P{i}."
+        c_in = _sub(cache, pre + "attn") if mode == "decode" else None
+        h, c, aux = run(_sub(params, pre[:-1]), spec, h, c_in)
+        aux_total = aux_total + aux
+        if mode == "prefill":
+            new_cache.update({f"{pre}attn.{n}": t for n, t in c.items()})
+
+    # --- the stacked periods ---
     per_layer: Dict[str, list] = {}
-    leaves = (("kp", "vp", "bt") if mode == "decode" and
-              "blocks.L0.attn.kp" in cache else ("k", "v", "slot_pos"))
+    layer_caches = ({j: _sub(cache, f"blocks.L{j}.attn")
+                     for j in range(len(period))} if mode == "decode" else {})
     stacked = {k: v.unbind(0) for k, v in params.items()
                if k.startswith("blocks.")}
-    remat = rt.remat and mode == "train"
     for i in range(n_periods):
         for j, spec in enumerate(period):
             pre = f"blocks.L{j}."
@@ -170,23 +230,20 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens, *,
                  if k.startswith(pre)}
             c_in: Optional[dict] = None
             if mode == "decode":    # views: in-place writes reach the stack
-                c_in = {n: cache[f"{pre}attn.{n}"][i] for n in leaves}
-            if remat:   # per-block remat: one block's internals live in bwd
-                h = checkpoint(lambda pp, hh, spec=spec: block_apply(
-                    pp, spec, hh, cfg, rt, pos=rope_pos, build_cache=False)[0],
-                    p, h, use_reentrant=False)
-                continue
-            h, c = block_apply(p, spec, h, cfg, rt, pos=rope_pos, cache=c_in,
-                               build_cache=mode != "train")
+                c_in = {n: t[i] for n, t in layer_caches[j].items()}
+            h, c, aux = run(p, spec, h, c_in)
+            aux_total = aux_total + aux
             if mode == "prefill":
                 for n, t in c.items():
                     per_layer.setdefault(f"{pre}attn.{n}", []).append(t)
 
     h = layers.rmsnorm(params["final_norm.scale"], h, cfg.norm_eps)
     if mode == "train":
-        return h, None
-    new_cache = cache if mode == "decode" else \
-        {k: torch.stack(v) for k, v in per_layer.items()}
+        return h, aux_total
+    if mode == "decode":
+        new_cache = cache
+    else:
+        new_cache.update({k: torch.stack(v) for k, v in per_layer.items()})
     if mode == "prefill":
         h = (h[:, -1:, :] if last_pos is None
              else h[torch.arange(B, device=h.device), last_pos.long()][:, None])

@@ -8,7 +8,9 @@ exact argmax; temperature sampling is the JAX package's
 
 Dense cache layout (per attention layer, stacked over periods as the
 prefill returns it): k/v (n_periods, B, S, K, hd) + slot_pos
-(n_periods, B, S); a windowed layer keeps a ring of its last W
+(n_periods, B, S), an MLA layer's latents ckv (n_periods, B, S, r) and
+krope (n_periods, B, S, rr) in place of k/v, a prefix layer's without
+the period dim; a windowed layer keeps a ring of its last W
 positions (slot = pos % W) once the prompt passes the window, so its
 decode state is O(W).  ``cache_abstract`` gives the shapes of a ready
 cache by a prefill on the ``meta`` device (the counterpart of
@@ -102,8 +104,9 @@ def cache_batch_axes(cfg: ModelConfig, S: int = 4) -> Dict[str, int]:
 
 
 # sequence axis counted from the end: leaves may lead with the stacked
-# period dim; k/v (..., S, K, hd), slot_pos (..., S)
-SEQ_AXIS_FROM_END = {"k": 3, "v": 3, "slot_pos": 1}
+# period dim; k/v (..., S, K, hd), MLA's ckv/krope (..., S, r), slot_pos
+# (..., S)
+SEQ_AXIS_FROM_END = {"k": 3, "v": 3, "ckv": 2, "krope": 2, "slot_pos": 1}
 
 
 def pad_cache(cache: Dict[str, torch.Tensor], extra: int) -> Dict[str, torch.Tensor]:

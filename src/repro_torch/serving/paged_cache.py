@@ -1,11 +1,15 @@
 """Paged KV cache: a global block pool + per-sequence block tables.
 
-A port of ``repro.serving.paged_cache`` for the dense GQA stacks.  Each
-attention layer's cache is a pool of fixed-size blocks plus an int32
-block table per slot, kept in a flat dict stacked over periods:
+A port of ``repro.serving.paged_cache`` for the decoder-only stacks.
+Each attention layer's cache is a pool of fixed-size blocks plus an
+int32 block table per slot, kept in a flat dict stacked over periods:
 
     "blocks.L{i}.attn.kp" / ".vp"   (n_periods, n_blocks, bs, K, hd)
     "blocks.L{i}.attn.bt"           (n_periods, n_slots, nbmax) int32
+
+An MLA layer pools its latents instead, "ckvp" (..., n_blocks, bs, r)
+and "kropep" (..., n_blocks, bs, rr).  A prefix layer's leaves
+("prefix.P{i}.attn.*") carry no leading period dim.
 
 Token position t of slot b lives at ``pool[bt[b, t // bs], t % bs]``.
 Block 0 is a reserved scratch block: inactive slots point their whole
@@ -27,7 +31,9 @@ import torch
 from repro_torch.configs.base import ModelConfig, layer_pattern
 from repro_torch.models.transformer import check_supported
 
-POOL_LEAVES = {"kp": "k", "vp": "v"}      # pool leaf -> dense prefill leaf
+# pool leaf -> (dense prefill leaf, number of trailing dims after (B, S))
+POOL_LEAVES = {"kp": ("k", 2), "vp": ("v", 2),
+               "ckvp": ("ckv", 1), "kropep": ("krope", 1)}
 
 
 def n_blocks_for(n_tokens: int, block_size: int) -> int:
@@ -146,20 +152,24 @@ def paged_cache_init(cfg: ModelConfig, n_slots: int, block_size: int,
                      n_blocks: int, nbmax: int,
                      device: torch.device) -> Dict[str, torch.Tensor]:
     """Zero-initialized pools and block tables for every attention
-    layer of the period (see module docstring), in the compute dtype
-    that prefill writes."""
+    layer, prefix and period (see module docstring), in the compute
+    dtype that prefill writes."""
     check_supported(cfg)
-    _, period, n_periods = layer_pattern(cfg)
-    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    prefix, period, n_periods = layer_pattern(cfg)
+    if cfg.mla is not None:
+        tails = {"ckvp": (cfg.mla.kv_lora_rank,), "kropep": (cfg.mla.qk_rope_dim,)}
+    else:
+        tails = dict.fromkeys(("kp", "vp"),
+                              (cfg.n_kv_heads, cfg.resolved_head_dim))
     cdt = getattr(torch, cfg.compute_dtype)
+    layers = ([(f"prefix.P{i}.attn.", ()) for i in range(len(prefix))]
+              + [(f"blocks.L{j}.attn.", (n_periods,)) for j in range(len(period))])
     paged = {}
-    for j in range(len(period)):
-        pre = f"blocks.L{j}.attn."
-        for name in POOL_LEAVES:
+    for pre, lead in layers:
+        for name, tail in tails.items():
             paged[pre + name] = torch.zeros(
-                (n_periods, n_blocks, block_size, K, hd), dtype=cdt,
-                device=device)
-        paged[pre + "bt"] = torch.zeros((n_periods, n_slots, nbmax),
+                lead + (n_blocks, block_size) + tail, dtype=cdt, device=device)
+        paged[pre + "bt"] = torch.zeros(lead + (n_slots, nbmax),
                                         dtype=torch.int32, device=device)
     return paged
 
@@ -193,7 +203,10 @@ def splice_prefill(paged, dense, row: int, slot: int, block_ids: List[int],
         leaf = name.rsplit(".", 1)[-1]
         if leaf not in POOL_LEAVES:
             continue
-        src = dense[name[:-len(leaf)] + POOL_LEAVES[leaf]]   # (n_p, B, S, ...)
+        dense_leaf, tail_nd = POOL_LEAVES[leaf]
+        src = dense[name[:-len(leaf)] + dense_leaf]    # ([n_p,] B, S, ...)
+        if pool.dim() == 2 + tail_nd:                  # a prefix layer
+            pool, src = pool.unsqueeze(0), src.unsqueeze(0)
         _splice_pool(pool, src[:, row], block_ids, skip_blocks)
     return paged
 
@@ -218,7 +231,9 @@ def paged_kv_bytes_per_block(paged) -> int:
     layer (the unit of the O(used-blocks) memory claim)."""
     total = 0
     for name, leaf in paged.items():
-        if name.rsplit(".", 1)[-1] in POOL_LEAVES:
-            total += leaf.numel() * leaf.element_size() // leaf.shape[1]
+        base = name.rsplit(".", 1)[-1]
+        if base in POOL_LEAVES:
+            n_blocks = leaf.shape[leaf.dim() - 2 - POOL_LEAVES[base][1]]
+            total += leaf.numel() * leaf.element_size() // n_blocks
     assert total, "no pool leaves found"
     return total

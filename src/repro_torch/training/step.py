@@ -36,10 +36,9 @@ from repro_torch.training.loss import lm_loss
 
 
 def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig, rt: Runtime):
-    h, _ = forward(params, cfg, rt, batch["tokens"], mode="train")
+    h, aux = forward(params, cfg, rt, batch["tokens"], mode="train")
     loss, ntok = lm_loss(h, unembed_matrix(params), batch["tokens"],
                          batch["loss_mask"], cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + aux, {"ce_loss": loss, "aux_loss": aux, "ntok": ntok}
 
 

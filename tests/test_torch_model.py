@@ -118,6 +118,19 @@ def test_model_defs_match_jax(arch):
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_model_defs_raise_for_unported_stacks(arch):
+    if tcfg.ARCHS[arch].mla is not None:
+        # ported since (MLA and MoE, the DeepSeek-V2 stacks): the tree is
+        # the JAX package's, path for path, with its shapes and dtypes
+        jd = jax_model_defs(jcfg.ARCHS[arch])
+        flat = jax.tree_util.tree_flatten_with_path(jd, is_leaf=is_def)[0]
+        jflat = {".".join(str(k.key) for k in path): d for path, d in flat}
+        tflat = flatten_defs(model_defs(tcfg.ARCHS[arch]))
+        assert sorted(jflat) == sorted(tflat)
+        for k, d in jflat.items():
+            e = tflat[k]
+            assert d.shape == e.shape, k
+            assert np.dtype(d.dtype).name == str(e.dtype).removeprefix("torch."), k
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model_defs(tcfg.ARCHS[arch])
 
