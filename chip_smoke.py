@@ -21,7 +21,9 @@ checkpoint; and the dense serving engine (``--engine dense``), against
 both paged paths and on a rotated ring past a long-context window; and
 the DeepSeek-V2 family (MLA attention, capacity-dispatched MoE):
 deepseek-v2-lite-16b served at full width on both engines and trained
-with SNGM on the engine.  Holds every kernel (11 rows: the deferred apply has its own) against
+with SNGM on the engine; and the Mamba2 (SSD) family, a pure SSM stack:
+mamba2-1.3b served at full width on both engines and trained with SNGM
+on the engine.  Holds every kernel (11 rows: the deferred apply has its own) against
 its plain PyTorch version.
 
     python3 chip_smoke.py
@@ -275,7 +277,36 @@ Phases, each raising on failure:
      against ``fused=None`` from one state on one set of gradients (2
      layers), 3 steps, bitwise.  Every line carries the card's name and
      power limit;
- 24. one JSON line of kernel timings against their bounds (11 rows;
+ 24. the Mamba2 (SSD) family (run after phase 23; no kernel of its own:
+     the reference computes SSD outside any Pallas kernel, and the stack
+     has no attention layer, so the paged kernel must launch 0 times):
+     (a) mamba2-1.3b at full width and all 48 layers, bf16, its weights
+     drawn on the card with each matmul leaf cast as it is drawn
+     (seconds, resident and peak memory): 8 requests (distinct prompt
+     lengths in 96-480, 32 new tokens) on 8 slots on the paged engine
+     (tok/s, latency p50/p99, ms a decode step, peak memory, a profiled
+     decode chunk; every prefill at a prompt's exact length) and on the
+     dense engine, the launch counts set to 0 just before each and read
+     just after; the dense engine teacher-forced on the paged tokens,
+     each paged token within ``MOE_REGRET`` of the dense top logit; the
+     free-running greedy tokens the two share, logged; (b) at full width
+     and 2 layers, one prefill of 8 prompts of one length feeding the
+     dense and the paged cache, 4 decode steps: bitwise in fp32 and
+     bf16; (c) at full width and 2 layers, fp32, a prompt of 300 tokens
+     (the chunk's padded tail runs), 4 decode steps within
+     ``SSM_TF_REL`` of a teacher-forced prefill of each prefix, beside
+     the logits' move under a one-ulp scale of one weight leaf; (d)
+     ``ssd_chunked`` at full-width dims (B 4, S 512, H 64, P 64, N 128,
+     chunk 256, fp32) against the token-by-token recurrence within
+     ``SSM_SSD_REL`` of max|y| and max|h|, one ``mamba_block``'s time in
+     bf16 a reading; (e) all 48 layers (1,343,740,928 params), SNGM on
+     the engine through the launcher's functions, batch 8 x 512 in 2
+     micro-batches with remat, 4 steps: 1 ``chunk_sumsq`` + 1
+     ``fused_update`` a step, finite stats, step time, tokens/s, peak
+     memory; and the engine against ``fused=None`` from one state on one
+     set of gradients (2 layers), 3 steps, bitwise.  Every line carries
+     the card's name and power limit;
+ 25. one JSON line of kernel timings against their bounds (11 rows;
      flash attention's row is the bf16 gemma-2b prefill), then the JSON
      result line.
 
@@ -292,6 +323,7 @@ device spin before the start event, so the host's enqueue (logged as
     python3 chip_smoke.py --ema-only    # phases 1 and 21: EMA shadow params
     python3 chip_smoke.py --dense-only  # phases 1 and 22: the dense engine
     python3 chip_smoke.py --moe-only    # phases 1 and 23: DeepSeek-V2
+    python3 chip_smoke.py --ssm-only    # phases 1 and 24: Mamba2
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -1651,9 +1683,10 @@ def profile_step(torch, run, state, top=8):
     log_profile(prof, wall_ms, "profiled step", top)
 
 
-def log_profile(prof, wall_ms, what, top=8):
+def log_profile(prof, wall_ms, what, top=8, prefix=""):
     """The device's busy share of a profiled window's wall time and the
-    kernels that take the most of it."""
+    kernels that take the most of it (each kernel's line led by
+    ``prefix``)."""
     from torch.autograd import DeviceType
     # device-side events only (kernels, copies): a CPU op's device time
     # repeats its kernels'
@@ -1667,7 +1700,8 @@ def log_profile(prof, wall_ms, what, top=8):
         f"{busy_ms:.0f} ms = {100 * busy_ms / wall_ms:.1f} %, idle "
         f"{100 - 100 * busy_ms / wall_ms:.1f} %; top kernels by device time:")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"  {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} {e.key[:90]}")
+        log(f"{prefix}  {e.self_device_time_total / 1e3:8.2f} ms x{e.count:<5d} "
+            f"{e.key[:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -3569,7 +3603,7 @@ def moe_traffic(vocab: int):
 
 
 def moe_serve_paged(torch, kernels, serve_mod, cfg, params, rt, prompts, card,
-                    label):
+                    label, tag="23a"):
     """The prompts on the paged engine (the scheduler, all queued at once,
     a pool for every slot at full context), the launch counts set to 0
     just before and read just after: no kernel of the table may launch.
@@ -3589,7 +3623,7 @@ def moe_serve_paged(torch, kernels, serve_mod, cfg, params, rt, prompts, card,
     st = sched.stats
     lats = [r.t_done - r.t_submit for r in finished]
     tokens = sum(len(r.out) for r in finished)
-    log(f"[{card}] 23a paged, {label}: {len(finished)} requests (prompts "
+    log(f"[{card}] {tag} paged, {label}: {len(finished)} requests (prompts "
         f"{min(map(len, prompts))}-{max(map(len, prompts))}), {tokens} tokens "
         f"in {dt:.2f} s: {tokens / dt:.1f} tok/s; latency p50 "
         f"{np.percentile(lats, 50):.3f} s p99 {np.percentile(lats, 99):.3f} s; "
@@ -3600,15 +3634,15 @@ def moe_serve_paged(torch, kernels, serve_mod, cfg, params, rt, prompts, card,
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"paged_decode_attention launches {launches['paged_decode_attention']}")
     if any(launches.values()):
-        raise AssertionError(f"23a paged: kernels launched: {launches}")
+        raise AssertionError(f"{tag} paged: kernels launched: {launches}")
     sched.alloc.check()
     if sched.alloc.used_blocks:
-        raise AssertionError(f"23a: {sched.alloc.used_blocks} blocks leaked")
-    return moe_tokens(cfg, "paged", finished)
+        raise AssertionError(f"{tag}: {sched.alloc.used_blocks} blocks leaked")
+    return moe_tokens(cfg, "paged", finished, tag), st
 
 
 def moe_serve_dense(torch, kernels, serve_mod, cfg, params, rt, prompts, card,
-                    label):
+                    label, tag="23a"):
     """The prompts on the dense engine (the launcher's ContinuousBatcher
     and ``serve_dense``), counts as ``moe_serve_paged``."""
     batcher = serve_mod.ContinuousBatcher(cfg, params, MOE_SLOTS,
@@ -3633,7 +3667,7 @@ def moe_serve_dense(torch, kernels, serve_mod, cfg, params, rt, prompts, card,
     lats = [r.t_done - r.t_submit for r in finished]
     tokens = sum(len(r.out) for r in finished)
     ms = np.array(steps) * 1e3
-    log(f"[{card}] 23a dense, {label}: {len(finished)} requests, {tokens} tokens "
+    log(f"[{card}] {tag} dense, {label}: {len(finished)} requests, {tokens} tokens "
         f"in {dt:.2f} s: {tokens / dt:.1f} tok/s; latency p50 "
         f"{np.percentile(lats, 50):.3f} s p99 {np.percentile(lats, 99):.3f} s; "
         f"{len(steps)} decode steps, {np.median(ms):.2f} ms median "
@@ -3641,33 +3675,34 @@ def moe_serve_dense(torch, kernels, serve_mod, cfg, params, rt, prompts, card,
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"paged_decode_attention launches {launches['paged_decode_attention']}")
     if any(launches.values()):
-        raise AssertionError(f"23a dense: kernels launched: {launches}")
-    return moe_tokens(cfg, "dense", finished)
+        raise AssertionError(f"{tag} dense: kernels launched: {launches}")
+    return moe_tokens(cfg, "dense", finished, tag)
 
 
-def moe_tokens(cfg, what, finished):
+def moe_tokens(cfg, what, finished, tag):
     if sorted(r.rid for r in finished) != list(range(MOE_REQUESTS)) or any(
             len(r.out) != MOE_MAX_NEW or not all(0 <= t < cfg.vocab_size
                                                  for t in r.out)
             for r in finished):
-        raise AssertionError(f"23a {what}: a request is missing, short or out "
+        raise AssertionError(f"{tag} {what}: a request is missing, short or out "
                              f"of the vocabulary")
     return {r.rid: list(r.out) for r in finished}
 
 
-def moe_agreement(want, got, card, label):
+def moe_agreement(want, got, card, label, tag="23a"):
     """Dense against paged greedy tokens: (requests equal, first tokens
     equal, tokens equal), logged."""
     same = sum(want[rid] == got[rid] for rid in want)
     first = sum(want[rid][0] == got[rid][0] for rid in want)
     agree = sum(a == b for rid in want for a, b in zip(want[rid], got[rid]))
-    log(f"[{card}] 23a dense vs paged greedy tokens, {label}: {same}/"
+    log(f"[{card}] {tag} dense vs paged greedy tokens, {label}: {same}/"
         f"{MOE_REQUESTS} requests equal, first tokens {first}/{MOE_REQUESTS}, "
         f"tokens {agree}/{MOE_REQUESTS * MOE_MAX_NEW}")
     return same, first, agree
 
 
-def moe_profile_decode(torch, serve_mod, cfg, params, rt, prompts, card):
+def moe_profile_decode(torch, serve_mod, cfg, params, rt, prompts, card,
+                       tag="23a"):
     """One paged decode chunk (DECODE_CHUNK steps) of 23a's requests under
     torch.profiler, after their prefill: the device's busy share and the
     kernels that take the most of it."""
@@ -3686,8 +3721,8 @@ def moe_profile_decode(torch, serve_mod, cfg, params, rt, prompts, card):
         sched.decode()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    log_profile(prof, wall_ms, f"[{card}] 23a profiled paged decode chunk "
-                f"({DECODE_CHUNK} steps)")
+    log_profile(prof, wall_ms, f"[{card}] {tag} profiled paged decode chunk "
+                f"({DECODE_CHUNK} steps)", prefix=f"[{card}] {tag}")
     sched.run()
 
 
@@ -3734,7 +3769,8 @@ def moe_prefill_noise(torch, serving, cfg, params, rt, prompts, card):
 MOE_REGRET = 0.5
 
 
-def moe_teacher_forced(torch, serve_mod, cfg, params, rt, prompts, paged, card):
+def moe_teacher_forced(torch, serve_mod, cfg, params, rt, prompts, paged, card,
+                       label, tag="23a"):
     """23a: the dense engine (the ContinuousBatcher: each prompt prefilled
     alone and spliced into its slot) decoding the paged engine's tokens:
     the regret of each paged token under the dense logits, at most
@@ -3756,12 +3792,12 @@ def moe_teacher_forced(torch, serve_mod, cfg, params, rt, prompts, paged, card):
                   / logits.abs().max(-1).values)
         worst = max(worst, regret.max().item())
         agree += int((nxt == want).sum())
-    log(f"[{card}] 23a dense engine teacher-forced on the paged tokens "
-        f"(capacity factor {cfg.moe.capacity_factor}): worst regret of a "
+    log(f"[{card}] {tag} dense engine teacher-forced on the paged tokens "
+        f"({label}): worst regret of a "
         f"paged token {worst:.3g} of max|logits| (bound {MOE_REGRET}); argmax "
         f"equal {agree}/{MOE_SLOTS * (MOE_MAX_NEW - 1)}")
     if worst > MOE_REGRET:
-        raise AssertionError(f"23a: a paged token sits {worst:.3g} of "
+        raise AssertionError(f"{tag}: a paged token sits {worst:.3g} of "
                              f"max|logits| below the dense engine's top")
     return worst
 
@@ -3789,18 +3825,19 @@ def phase_moe_serve(torch, kernels, serve_mod, cfg, rt, card):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while drawing")
     prompts = moe_traffic(cfg.vocab_size)
     label = f"capacity factor {cfg.moe.capacity_factor}"
-    paged = moe_serve_paged(torch, kernels, serve_mod, cfg, params, rt, prompts,
-                            card, label)
+    paged, _ = moe_serve_paged(torch, kernels, serve_mod, cfg, params, rt,
+                               prompts, card, label)
     moe_profile_decode(torch, serve_mod, cfg, params, rt, prompts, card)
     dense = moe_serve_dense(torch, kernels, serve_mod, cfg, params, rt, prompts,
                             card, label)
     agree = {"config": moe_agreement(paged, dense, card, label)}
-    moe_teacher_forced(torch, serve_mod, cfg, params, rt, prompts, paged, card)
+    moe_teacher_forced(torch, serve_mod, cfg, params, rt, prompts, paged, card,
+                       label)
     nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=16.0))
     label = "capacity factor 16 (nothing drops)"
-    paged = moe_serve_paged(torch, kernels, serve_mod, nodrop, params, rt,
-                            prompts, card, label)
+    paged, _ = moe_serve_paged(torch, kernels, serve_mod, nodrop, params, rt,
+                               prompts, card, label)
     dense = moe_serve_dense(torch, kernels, serve_mod, nodrop, params, rt,
                             prompts, card, label)
     agree["nodrop"] = moe_agreement(paged, dense, card, label)
@@ -3810,16 +3847,17 @@ def phase_moe_serve(torch, kernels, serve_mod, cfg, rt, card):
 
 
 def phase_moe_dense_paged(torch, kernels, serve_mod, serving, cfg, rt, card,
-                          steps=4):
+                          steps=4, prompts=None, tag="23b", strict=False):
     """23b: at full width and 2 layers (the dense prefix layer and one MoE
     layer), one prefill of 8 prompts feeds both the dense ring (padded to
     the pools' gathered length) and the latent pools; ``steps`` decode
     steps teacher-forced on the dense engine's tokens: bitwise in fp32
-    (the same ops on the same shapes), bf16 logged."""
+    (the same ops on the same shapes), bf16 logged (``strict``: bitwise
+    in bf16 too)."""
     from repro_torch.serving import paged_cache as pc
     c = dataclasses.replace(cfg, n_layers=2)
     params, _ = serve_mod.load_model(c, rt, seed=0)
-    prompts = moe_traffic(c.vocab_size)
+    prompts = moe_traffic(c.vocab_size) if prompts is None else prompts
     S = max(len(p) for p in prompts)
     toks = np.zeros((MOE_SLOTS, S), np.int32)
     for i, p in enumerate(prompts):
@@ -3846,21 +3884,22 @@ def phase_moe_dense_paged(torch, kernels, serve_mod, serving, cfg, rt, card,
         nd, ld, dense = step(params, dense, tok, pos)
         npg, lp, paged = step(params, paged, tok, pos)
         if not bool(torch.isfinite(ld).all()):
-            raise AssertionError("23b: dense logits are not finite")
+            raise AssertionError(f"{tag}: dense logits are not finite")
         bitwise &= bool(torch.equal(ld, lp))
         worst = max(worst, ((ld - lp).abs().max() / ld.abs().max()).item())
         agree += int((nd == npg).sum())
         tok, pos = nd[:, None], pos + 1
     launches = kernels.launch_counts()
-    log(f"[{card}] 23b ({c.compute_dtype}, {c.n_layers} layers, context "
-        f"{nbmax * BLOCK_SIZE}): dense ring vs paged latent pools over {steps} "
+    log(f"[{card}] {tag} ({c.compute_dtype}, {c.n_layers} layers, context "
+        f"{nbmax * BLOCK_SIZE}): dense vs paged cache over {steps} "
         f"steps: {'bitwise' if bitwise else 'not bitwise'}, worst "
         f"{worst:.3g} of max|logits|; greedy tokens agree "
         f"{agree}/{steps * MOE_SLOTS}; kernel launches {sum(launches.values())}")
     if any(launches.values()):
-        raise AssertionError(f"23b: kernels launched: {launches}")
-    if c.compute_dtype == "float32" and not bitwise:
-        raise AssertionError(f"23b: dense and paged differ in fp32 by {worst:.3g}")
+        raise AssertionError(f"{tag}: kernels launched: {launches}")
+    if (c.compute_dtype == "float32" or strict) and not bitwise:
+        raise AssertionError(f"{tag}: dense and paged differ in "
+                             f"{c.compute_dtype} by {worst:.3g}")
     return bitwise, worst
 
 
@@ -3929,22 +3968,24 @@ def phase_moe_layer(torch, cfg, card):
     return err, ms
 
 
-def phase_moe_train(torch, kernels, train_mod, card):
+def phase_moe_train(torch, kernels, train_mod, card, arch=MOE_ARCH,
+                    n_layers=MOE_TRAIN_LAYERS, tag="23d"):
     """23d: deepseek-v2-lite-16b at full width, depth cut to 1 dense prefix
-    layer + 3 MoE layers, SNGM on the engine through the launcher's own
-    ``build``/``train`` (batch 8 x 512 in 2 micro-batches, remat, wd
-    1e-4), 4 steps, the launch counts set to 0 just before and read just
-    after: 1 chunk_sumsq + 1 fused_update a step; aux_loss finite."""
+    layer + 3 MoE layers (``n_layers``; None keeps the arch's depth), SNGM
+    on the engine through the launcher's own ``build``/``train`` (batch 8
+    x 512 in 2 micro-batches, remat, wd 1e-4), 4 steps, the launch counts
+    set to 0 just before and read just after: 1 chunk_sumsq + 1
+    fused_update a step; aux_loss finite."""
     args = train_mod.parse_args(
-        ["--arch", MOE_ARCH, "--steps", "4", "--batch", "8", "--seq", "512",
+        ["--arch", arch, "--steps", "4", "--batch", "8", "--seq", "512",
          "--n-micro", "2", "--weight-decay", "1e-4", "--log-every", "1",
          "--device", "cuda", "--seed", "0", "--optimizer", "sngm", "--fused",
          "multi_tensor"])
     t0 = time.perf_counter()
-    with depth_cut(train_mod, MOE_TRAIN_LAYERS):
+    with depth_cut(train_mod, n_layers):
         run = train_mod.build(args)
     torch.cuda.synchronize()
-    log(f"[{card}] 23d {run.cfg.name} at {run.cfg.n_layers} layers: "
+    log(f"[{card}] {tag} {run.cfg.name} at {run.cfg.n_layers} layers: "
         f"{run.n_params:,} fp32 params, built in {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -3956,16 +3997,16 @@ def phase_moe_train(torch, kernels, train_mod, card):
     want = {k: (args.steps if k in ("chunk_sumsq", "fused_update") else 0)
             for k in launches}
     if launches != want:
-        raise AssertionError(f"23d: launches {launches}, want {want}")
+        raise AssertionError(f"{tag}: launches {launches}, want {want}")
     if len(recs) != args.steps or not all(
             np.isfinite(m[k]) for m in recs
             for k in ("loss", "grad_norm", "lr", "aux_loss")):
-        raise AssertionError(f"23d: missing or non-finite stats {recs}")
+        raise AssertionError(f"{tag}: missing or non-finite stats {recs}")
     steady = [m["step_time_s"] for m in recs[1:]]
     step_s = float(np.median(steady))
     losses = ", ".join(f"{m['loss']:.4f}" for m in recs)
     auxes = ", ".join(f"{m['aux_loss']:.6f}" for m in recs)
-    log(f"[{card}] 23d SNGM on the engine, 4 steps: losses {losses}; "
+    log(f"[{card}] {tag} SNGM on the engine, 4 steps: losses {losses}; "
         f"aux_loss {auxes}; step 0 {recs[0]['step_time_s']:.3f} s, then "
         f"{', '.join(f'{s:.3f}' for s in steady)} s; median {step_s:.3f} s = "
         f"{args.batch * args.seq / step_s:.0f} tokens/s; peak device memory "
@@ -3978,9 +4019,10 @@ def phase_moe_train(torch, kernels, train_mod, card):
     return launches, step_s, peak_gib
 
 
-def phase_moe_engine_vs_plain(torch, cfg, card, n_layers=2, steps=3):
+def phase_moe_engine_vs_plain(torch, cfg, card, n_layers=2, steps=3,
+                              tag="23d"):
     """23d: SNGM on the engine against ``fused=None`` from one state on one
-    set of full-width gradients (a backward pass of the DeepSeek stack),
+    set of full-width gradients (a backward pass of the stack),
     ``steps`` steps: params, momentum and stats bitwise.  Depth cut to 2
     layers (the prefix layer and one MoE layer), as phase 10 does, to
     hold both states and the plain path's temporaries side by side."""
@@ -4014,9 +4056,9 @@ def phase_moe_engine_vs_plain(torch, cfg, card, n_layers=2, steps=3):
                 and all(same_bits(torch, ua[k], ub[k])
                         for ua, ub in zip(*map(opt_slots, states)) for k in ua))
         if not same:
-            raise AssertionError(f"23d: fused=None and the engine differ at "
+            raise AssertionError(f"{tag}: fused=None and the engine differ at "
                                  f"step {t}")
-    log(f"[{card}] 23d SNGM engine vs fused=None on one set of gradients "
+    log(f"[{card}] {tag} SNGM engine vs fused=None on one set of gradients "
         f"({c.n_layers} layers, loss {loss.item():.4f}, aux_loss "
         f"{metrics['aux_loss'].item():.6f}): bitwise over {steps} steps "
         f"(params, momentum, stats)")
@@ -4057,6 +4099,224 @@ def phase_moe(torch, kernels, serve_mod, train_mod, serving, card):
         f"{t_b - t_a:.1f} s, 23c {t_c - t_b:.1f} s, 23d {t_d - t_c:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the Mamba2 (SSD) family, a pure SSM stack
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-1.3b"
+SSM_PROMPT_24B = 200                 # 24b: 8 prompts of one length
+SSM_PROMPT_24C = 300                 # 24c: not a multiple of the chunk (256)
+SSM_TF_REL = 1e-2                    # 24c: decode vs teacher forcing, fp32
+SSM_SSD = (4, 512)                   # 24d: B, S of ssd_chunked's check
+SSM_SSD_REL = 1e-4                   # 24d: chunked vs recurrence, of max
+
+
+class CardLines:
+    """A stdout that leads every line lacking the card's name with it (the
+    launchers' own ``[serve:...]`` and step lines), so that each line of a
+    phase names the card it ran on."""
+
+    def __init__(self, out, card):
+        self.out, self.card, self.buf = out, card, ""
+
+    def write(self, text):
+        self.buf += text
+        *lines, self.buf = self.buf.split("\n")
+        for line in lines:
+            if self.card not in line:
+                line = f"[chip_smoke] [{self.card}] {line}"
+            self.out.write(line + "\n")
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def ssm_traffic(vocab: int):
+    """24a's prompts: MOE_REQUESTS distinct lengths in [PROMPT_LO,
+    PROMPT_HI] (the paged engine prefills each at its exact length)."""
+    rng = np.random.RandomState(24)
+    lengths = rng.choice(np.arange(PROMPT_LO, PROMPT_HI + 1), MOE_REQUESTS,
+                         replace=False)
+    return [rng.randint(0, vocab, int(n)).astype(np.int32) for n in lengths]
+
+
+def phase_ssm_serve(torch, kernels, serve_mod, cfg, rt, card):
+    """24a: mamba2-1.3b at full width and all 48 layers, bf16, its weights
+    drawn on the card with each matmul leaf cast as it is drawn: the 8
+    requests on the paged engine and then the dense one, each with the
+    launch counts set to 0 just before and read just after (no attention
+    layer: the paged kernel launches 0 times); every paged prefill at a
+    prompt's exact length (an SSM scans through padding); the dense
+    engine teacher-forced on the paged tokens within ``MOE_REGRET``; the
+    engines' free-running greedy tokens compared, logged."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, n_params = serve_mod.load_model(cfg, rt, seed=0)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    log(f"[{card}] 24a {cfg.name}: {n_params:,} params drawn on the card from "
+        f"PRNGKey(0), each matmul leaf cast to {cfg.compute_dtype} as it is "
+        f"drawn, in {t_load:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while drawing")
+    prompts = ssm_traffic(cfg.vocab_size)
+    label = cfg.compute_dtype
+    paged, st = moe_serve_paged(torch, kernels, serve_mod, cfg, params, rt,
+                                prompts, card, label, tag="24a")
+    shapes = sorted(st["prefill_shapes"])
+    want = sorted((MOE_SLOTS, len(p)) for p in prompts)
+    log(f"[{card}] 24a paged prefill shapes {shapes} (each a prompt's exact "
+        f"length: {shapes == want})")
+    if shapes != want:
+        raise AssertionError(f"24a: prefill shapes {shapes}, want {want}")
+    moe_profile_decode(torch, serve_mod, cfg, params, rt, prompts, card, tag="24a")
+    dense = moe_serve_dense(torch, kernels, serve_mod, cfg, params, rt, prompts,
+                            card, label, tag="24a")
+    agree = moe_agreement(paged, dense, card, label, tag="24a")
+    moe_teacher_forced(torch, serve_mod, cfg, params, rt, prompts, paged, card,
+                       label, tag="24a")
+    return agree
+
+
+def phase_ssm_teacher(torch, serve_mod, serving, cfg, rt, card, steps=4):
+    """24c: at full width and 2 layers, fp32: a prompt of SSM_PROMPT_24C
+    tokens (not a multiple of the chunk, so the padded tail runs) and
+    ``steps`` decode steps, each step's logits against a prefill of the
+    prefix it completes, within SSM_TF_REL of the max logit; beside it,
+    how far a one-ulp scale of one weight leaf moves the prefill (the
+    random stack's own noise at this depth)."""
+    c = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    params, _ = serve_mod.load_model(c, rt, seed=0)
+    S = SSM_PROMPT_24C
+    toks = torch.from_numpy(np.random.RandomState(25).randint(
+        0, c.vocab_size, (1, S + steps)).astype(np.int32)).to(rt.device)
+    prefill = serving.make_prefill_step(c, rt)
+    step = serving.make_serve_step(c, rt)
+    first, cache = prefill(params, toks[:, :S])
+    cache = serving.pad_cache(cache, steps)
+    worst = 0.0
+    for i in range(steps):
+        pos = torch.full((1,), S + i, dtype=torch.int32, device=rt.device)
+        _, got, cache = step(params, cache, toks[:, S + i:S + i + 1], pos)
+        ref = prefill(params, toks[:, :S + i + 1])[0][:, -1]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("24c: decode logits are not finite")
+        worst = max(worst, ((got - ref).abs().max() / ref.abs().max()).item())
+    leaf = "blocks.L0.mamba.out_proj"
+    nudged = dict(params, **{leaf: params[leaf] * (1 + 2**-23)})
+    moved = prefill(nudged, toks[:, :S])[0]
+    ulp = ((moved - first).abs().max() / first.abs().max()).item()
+    log(f"[{card}] 24c ({c.n_layers} layers, fp32, prompt {S}, chunk "
+        f"{c.ssm.chunk}): decode vs a teacher-forced prefill over {steps} "
+        f"steps, worst {worst:.3g} of max|logits| (bound {SSM_TF_REL}); "
+        f"{leaf} scaled by 1 + 2^-23 moves the prefill's logits by {ulp:.3g}")
+    if worst > SSM_TF_REL:
+        raise AssertionError(f"24c: decode differs from teacher forcing by "
+                             f"{worst:.3g}")
+    return worst, ulp
+
+
+def naive_ssd(torch, x, dt, A, B_, C_):
+    """``ssd_chunked``'s oracle (``tests/test_ssd.py``): the token-by-token
+    recurrence h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T, y_t = C_t h_t."""
+    Bb, S, H, P = x.shape
+    rep = H // B_.shape[2]
+    Bh, Ch = B_.repeat_interleave(rep, 2), C_.repeat_interleave(rep, 2)
+    h = torch.zeros((Bb, H, P, B_.shape[3]), device=x.device)
+    ys = []
+    for t in range(S):
+        h = (h * torch.exp(dt[:, t] * A)[..., None, None]
+             + torch.einsum("bhp,bhn->bhpn", x[:, t] * dt[:, t][..., None],
+                            Bh[:, t]))
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    return torch.stack(ys, 1), h
+
+
+def phase_ssm_ssd(torch, cfg, card):
+    """24d: ``ssd_chunked`` at full-width dims (B, S = SSM_SSD, H 64, P 64,
+    N 128, chunk 256, fp32) against the token-by-token recurrence within
+    SSM_SSD_REL of max|y| and of max|h|; one ``mamba_block``'s time at
+    that shape in bf16, a reading."""
+    from repro_torch import prng
+    from repro_torch.models import mamba, materialize
+    from repro_torch.models.transformer import compute_cast
+    dev = torch.device("cuda")
+    s, d_in, H, P, N, G = mamba._dims(cfg)
+    B, S = SSM_SSD
+    g = torch.Generator(device=dev).manual_seed(24)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    x, Bm, Cm = rn(B, S, H, P), rn(B, S, G, N), rn(B, S, G, N)
+    dt = torch.nn.functional.softplus(rn(B, S, H))
+    A = -torch.exp(rn(H) * 0.5)
+    y, h = mamba.ssd_chunked(x, dt, A, Bm, Cm, s.chunk)
+    yr, hr = naive_ssd(torch, x, dt, A, Bm, Cm)
+    err_y = ((y - yr).abs().max() / yr.abs().max()).item()
+    err_h = ((h - hr).abs().max() / hr.abs().max()).item()
+    del x, Bm, Cm, dt, y, h, yr, hr
+    p = materialize(mamba.mamba_defs(cfg), prng.PRNGKey(24), dev,
+                    cast=compute_cast(cfg))
+    xb = rn(B, S, cfg.d_model).to(getattr(torch, cfg.compute_dtype))
+    ms = time_calls(torch, lambda: mamba.mamba_block(p, xb, cfg,
+                                                     build_cache=False), n=10)
+    log(f"[{card}] 24d ssd_chunked (B {B}, S {S}, H {H}, P {P}, N {N}, chunk "
+        f"{s.chunk}, fp32) vs the token-by-token recurrence: y {err_y:.3g}, "
+        f"h {err_h:.3g} of max (bound {SSM_SSD_REL}); one mamba_block at "
+        f"(B {B}, S {S}, d {cfg.d_model}) in {cfg.compute_dtype}: {ms:.3f} ms, "
+        f"a reading")
+    if max(err_y, err_h) > SSM_SSD_REL:
+        raise AssertionError(f"24d: ssd_chunked vs the recurrence: y {err_y:.3g}, "
+                             f"h {err_h:.3g}")
+    return err_y, err_h, ms
+
+
+def phase_ssm(torch, kernels, serve_mod, train_mod, serving, card):
+    """Phase 24, 24a-24e, each sub-phase's seconds logged, every line
+    printed led by the card's name and power limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_runtime
+    cfg = get_config(SSM_ARCH)
+    rt = make_runtime("cuda")
+    with contextlib.redirect_stdout(CardLines(sys.stdout, card)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_ssm_serve(torch, kernels, serve_mod, cfg, rt, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_a = time.perf_counter()
+        rng = np.random.RandomState(26)
+        same_len = [rng.randint(0, cfg.vocab_size, SSM_PROMPT_24B)
+                    .astype(np.int32) for _ in range(MOE_SLOTS)]
+        for dtype in ("float32", "bfloat16"):
+            phase_moe_dense_paged(torch, kernels, serve_mod, serving,
+                                  dataclasses.replace(cfg, compute_dtype=dtype),
+                                  rt, card, prompts=same_len, tag="24b",
+                                  strict=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        t_b = time.perf_counter()
+        phase_ssm_teacher(torch, serve_mod, serving, cfg, rt, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_c = time.perf_counter()
+        phase_ssm_ssd(torch, cfg, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_d = time.perf_counter()
+        phase_moe_train(torch, kernels, train_mod, card, arch=SSM_ARCH,
+                        n_layers=None, tag="24e")
+        phase_moe_engine_vs_plain(torch, cfg, card, tag="24e")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_e = time.perf_counter()
+        log(f"[{card}] phase 24: {t_e - t0:.1f} s (24a {t_a - t0:.1f} s, 24b "
+            f"{t_b - t_a:.1f} s, 24c {t_c - t_b:.1f} s, 24d {t_d - t_c:.1f} s, "
+            f"24e {t_e - t_d:.1f} s)")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="On-card smoke run of the port.")
@@ -4089,6 +4349,11 @@ def main(argv=None) -> int:
                          "width: serving on both engines, dense vs paged, one "
                          "MoE layer, SNGM training on the engine); prints no "
                          "kernel rows")
+    ap.add_argument("--ssm-only", action="store_true",
+                    help="phases 1 and 24 only (the Mamba2 family at full "
+                         "width: serving on both engines, dense vs paged, "
+                         "teacher forcing, ssd_chunked, SNGM training on the "
+                         "engine); prints no kernel rows")
     ap.add_argument("--ema-only", action="store_true",
                     help="phases 1 and 21 only (EMA shadow parameters on the "
                          "engine at full width, against the interpreter and "
@@ -4127,7 +4392,7 @@ def main(argv=None) -> int:
     lars = SimpleNamespace(ops=lars_ops, ref=lars_ref)
     t_start = time.perf_counter()
     libs = {"paged_attention": [ops.SOURCE]}
-    if args.convnet_only or args.ema_only or args.moe_only:
+    if args.convnet_only or args.ema_only or args.moe_only or args.ssm_only:
         libs = {mt_ops.LIB_NAME: [mt_ops.SOURCE]}
     elif args.chains_only or args.ckpt_only or args.data_only:
         libs[mt_ops.LIB_NAME] = [mt_ops.SOURCE]
@@ -4162,6 +4427,8 @@ def main(argv=None) -> int:
         phase_ema(torch, kernels, train_mod, get_config(ARCH))
     elif args.moe_only:
         phase_moe(torch, kernels, serve_mod, train_mod, serving, card)
+    elif args.ssm_only:
+        phase_ssm(torch, kernels, serve_mod, train_mod, serving, card)
     elif not args.ops_only:
         err = phase_kernel(torch, ops, ref)
         rt = make_runtime("cuda")
@@ -4214,11 +4481,12 @@ def main(argv=None) -> int:
         phase_convnet(torch, kernels)
         phase_ema(torch, kernels, train_mod, cfg)
         phase_moe(torch, kernels, serve_mod, train_mod, serving, card)
+        phase_ssm(torch, kernels, serve_mod, train_mod, serving, card)
         t_train = time.perf_counter()
 
     if not (args.paged_only or args.chains_only or args.ckpt_only
             or args.data_only or args.convnet_only or args.ema_only
-            or args.dense_only or args.moe_only):
+            or args.dense_only or args.moe_only or args.ssm_only):
         phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
         cases = ops_cases(torch)
         outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)

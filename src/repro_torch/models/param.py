@@ -21,7 +21,7 @@ from repro_torch import prng
 class ParamDef(NamedTuple):
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]   # logical axis name per dim
-    init: str = "normal"              # normal | zeros | ones | embed | const
+    init: str = "normal"   # normal | zeros | ones | embed | const | arange_log
     scale: float = -1.0               # -1 -> 1/sqrt(fan_in) for "normal"
     dtype: torch.dtype = torch.float32
 
@@ -88,10 +88,11 @@ def materialize(tree, key: torch.Tensor, device: torch.device,
             t = torch.ones(d.shape, dtype=d.dtype, device=device)
         elif d.init == "const":
             t = torch.full(d.shape, d.scale, dtype=d.dtype, device=device)
+        elif d.init == "arange_log":      # Mamba A_log: log(uniform[1, 16])
+            leaf_key = prng.fold_in(key, _path_hash(path))
+            t = torch.log(prng.uniform(leaf_key, d.shape, 1.0, 16.0,
+                                       device)).to(d.dtype)
         else:
-            if d.init == "arange_log":
-                raise NotImplementedError("Mamba init: ROADMAP.md Queue A, "
-                                          "'Rest of the arch zoo'")
             scale = d.scale if d.scale >= 0 else 1.0 / math.sqrt(_fan_in(d))
             leaf_key = prng.fold_in(key, _path_hash(path))
             t = prng.normal(leaf_key, d.shape, device).mul_(scale).to(d.dtype)

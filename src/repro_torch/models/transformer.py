@@ -1,8 +1,9 @@
 """Model assembly for the decoder-only stacks, built from the layers.
 
 A port of ``repro.models.transformer``: ``model_defs``, ``block_apply``
-(GQA or MLA attention, then a dense or MoE FFN) and ``forward`` in
-``train``, ``prefill`` and ``decode`` modes.  The JAX package scans the
+(GQA or MLA attention, then a dense or MoE FFN; or a Mamba2 mixer alone,
+``models.mamba``) and ``forward`` in ``train``, ``prefill`` and
+``decode`` modes.  The JAX package scans the
 stacked layer period with ``lax.scan``; here a Python loop walks the
 stacked leading dim, split once with ``unbind`` so that the backward
 pass stacks each leaf's gradient in one piece.  Leading prefix layers
@@ -10,8 +11,8 @@ pass stacks each leaf's gradient in one piece.  Leading prefix layers
 before the periods and carry no stacked dim.  Per-block remat
 (``Runtime.remat``) is ``torch.utils.checkpoint``, the JAX package's
 ``jax.checkpoint``; its sqrt-remat grouping of periods is not ported.
-SSM and encoder-decoder stacks are not ported yet and raise
-``NotImplementedError``.
+Hybrid (attention + SSM) and encoder-decoder stacks are not ported yet
+and raise ``NotImplementedError``.
 
 Parameters are the flat ``{dotted.path: Tensor}`` dict of
 ``models.param`` ("blocks.L0.attn.wq" has shape (n_periods, d, H, hd);
@@ -19,7 +20,10 @@ Parameters are the flat ``{dotted.path: Tensor}`` dict of
 returns each attention layer's dense cache, "blocks.L{i}.attn.{k,v,
 slot_pos}" stacked over periods (MLA: "{ckv,krope,slot_pos}", the
 latents only), "prefix.P{i}.attn.*" unstacked; a windowed layer keeps a
-ring of its last W positions once the prompt passes the window.  Decode
+ring of its last W positions once the prompt passes the window.  A
+Mamba2 layer's cache is its per-sequence state, "blocks.L{i}.mamba.conv"
+(n_periods, B, W-1, conv_dim) and ".ssm" (n_periods, B, H, P, N), the
+same in the dense and the paged cache.  Decode
 takes either that dense cache (``serving.engine``'s ``pad_cache`` grows
 it) or the paged one, "{kp,vp,bt}" / MLA "{ckvp,kropep,bt}"
 (``serving.paged_cache``), told apart by their keys, writes each
@@ -34,19 +38,22 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, layer_pattern
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, mamba, moe
 from repro_torch.models.param import ParamDef, map_defs, stack
 from repro_torch.models.runtime import Runtime
 
-# matmul weights, cast once to the compute dtype (``cast_for_compute``);
-# MoE's router stays fp32 (the JAX package routes from fp32 logits), and
-# the norm scales (kv_norm, q_norm, ...) stay as stored
+# matmul weights (and Mamba's conv), cast once to the compute dtype
+# (``cast_for_compute``); MoE's router stays fp32 (the JAX package routes
+# from fp32 logits), and the norm scales (kv_norm, q_norm, Mamba's norm)
+# and Mamba's A_log, D and dt_bias stay as stored
 MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd",
-                 "wkv_a", "wk_b", "wv_b", "wq_a", "wq_b")
+                 "wkv_a", "wk_b", "wv_b", "wq_a", "wq_b",
+                 "wz", "wx", "wB", "wC", "wdt", "out_proj", "conv_w", "conv_b")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    for what, present in (("SSM", cfg.ssm is not None),
+    hybrid = cfg.ssm is not None and cfg.attn_every != 0
+    for what, present in (("hybrid attention + SSM", hybrid),
                           ("encoder-decoder", cfg.is_encoder_decoder)):
         if present:
             raise NotImplementedError(
@@ -58,13 +65,23 @@ def check_supported(cfg: ModelConfig) -> None:
 # parameter trees
 # ---------------------------------------------------------------------------
 
+def mixer_name(spec: LayerSpec) -> str:
+    """The block's mixer subtree (and cache) name: "attn" or "mamba"."""
+    return "attn" if spec.mixer in ("attn", "attn_local") else "mamba"
+
+
 def block_defs(cfg: ModelConfig, spec: LayerSpec):
-    d = {"attn_norm": layers.rmsnorm_defs(cfg.d_model),
-         "attn": layers.attention_defs(cfg),
-         "ffn_norm": layers.rmsnorm_defs(cfg.d_model)}
+    if mixer_name(spec) == "attn":
+        d = {"attn_norm": layers.rmsnorm_defs(cfg.d_model),
+             "attn": layers.attention_defs(cfg)}
+    else:
+        d = {"mixer_norm": layers.rmsnorm_defs(cfg.d_model),
+             "mamba": mamba.mamba_defs(cfg)}
+    if spec.ffn != "none":
+        d["ffn_norm"] = layers.rmsnorm_defs(cfg.d_model)
     if spec.ffn == "moe":
         d["moe"] = moe.moe_defs(cfg)
-    else:
+    elif spec.ffn == "dense":
         d["ffn"] = layers.mlp_defs(cfg, cfg.d_ff)
     return d
 
@@ -133,25 +150,33 @@ def block_apply(p, spec: LayerSpec, h, cfg: ModelConfig, rt: Runtime, *,
     """Returns (h, cache, aux): the dense prefill cache of this layer
     (None without ``build_cache``), or the decode cache dict it was
     given, dense or paged (updated in place); and the MoE load-balance
-    loss (a zero fp32 scalar for a dense FFN)."""
-    xin = layers.rmsnorm(p["attn_norm.scale"], h, cfg.norm_eps)
-    local = spec.mixer == "attn_local"
-    if cfg.mla is not None:
-        a, c = layers.mla_attention(_sub(p, "attn"), xin, cfg, local=local,
-                                    pos=pos, cache=cache,
-                                    build_cache=build_cache)
+    loss (a zero fp32 scalar for a dense FFN or none)."""
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    if mixer_name(spec) == "mamba":
+        xin = layers.rmsnorm(p["mixer_norm.scale"], h, cfg.norm_eps)
+        a, c = mamba.mamba_block(_sub(p, "mamba"), xin, cfg, cache=cache,
+                                 build_cache=build_cache)
     else:
-        a, c = layers.gqa_attention(_sub(p, "attn"), xin, cfg, local=local,
-                                    pos=pos, cache=cache,
-                                    paged_kernel=rt.paged_kernel,
-                                    build_cache=build_cache)
+        xin = layers.rmsnorm(p["attn_norm.scale"], h, cfg.norm_eps)
+        local = spec.mixer == "attn_local"
+        if cfg.mla is not None:
+            a, c = layers.mla_attention(_sub(p, "attn"), xin, cfg, local=local,
+                                        pos=pos, cache=cache,
+                                        build_cache=build_cache)
+        else:
+            a, c = layers.gqa_attention(_sub(p, "attn"), xin, cfg, local=local,
+                                        pos=pos, cache=cache,
+                                        paged_kernel=rt.paged_kernel,
+                                        build_cache=build_cache)
     h = h + a.to(h.dtype)
+    if spec.ffn == "none":              # a pure SSM block is its mixer
+        return h, c, zero
     xin = layers.rmsnorm(p["ffn_norm.scale"], h, cfg.norm_eps)
     if spec.ffn == "moe":
         y, aux = moe.moe_apply(_sub(p, "moe"), xin, cfg)
     else:
         y = layers.mlp(_sub(p, "ffn"), xin, cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        aux = zero
     h = h + y.to(h.dtype)
     return h, c, aux
 
@@ -210,17 +235,18 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens, *,
 
     # --- unrolled prefix layers ---
     for i, spec in enumerate(prefix):
-        pre = f"prefix.P{i}."
-        c_in = _sub(cache, pre + "attn") if mode == "decode" else None
-        h, c, aux = run(_sub(params, pre[:-1]), spec, h, c_in)
+        pre = f"prefix.P{i}.{mixer_name(spec)}"
+        c_in = _sub(cache, pre) if mode == "decode" else None
+        h, c, aux = run(_sub(params, f"prefix.P{i}"), spec, h, c_in)
         aux_total = aux_total + aux
         if mode == "prefill":
-            new_cache.update({f"{pre}attn.{n}": t for n, t in c.items()})
+            new_cache.update({f"{pre}.{n}": t for n, t in c.items()})
 
     # --- the stacked periods ---
     per_layer: Dict[str, list] = {}
-    layer_caches = ({j: _sub(cache, f"blocks.L{j}.attn")
-                     for j in range(len(period))} if mode == "decode" else {})
+    layer_caches = ({j: _sub(cache, f"blocks.L{j}.{mixer_name(spec)}")
+                     for j, spec in enumerate(period)}
+                    if mode == "decode" else {})
     stacked = {k: v.unbind(0) for k, v in params.items()
                if k.startswith("blocks.")}
     for i in range(n_periods):
@@ -235,7 +261,8 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens, *,
             aux_total = aux_total + aux
             if mode == "prefill":
                 for n, t in c.items():
-                    per_layer.setdefault(f"{pre}attn.{n}", []).append(t)
+                    per_layer.setdefault(f"{pre}{mixer_name(spec)}.{n}",
+                                         []).append(t)
 
     h = layers.rmsnorm(params["final_norm.scale"], h, cfg.norm_eps)
     if mode == "train":

@@ -9,7 +9,16 @@ int32 block table per slot, kept in a flat dict stacked over periods:
 
 An MLA layer pools its latents instead, "ckvp" (..., n_blocks, bs, r)
 and "kropep" (..., n_blocks, bs, rr).  A prefix layer's leaves
-("prefix.P{i}.attn.*") carry no leading period dim.
+("prefix.P{i}.attn.*") carry no leading period dim.  A Mamba2 layer's
+fixed-size state is left per slot, as in the dense cache: there is
+nothing to page in an O(1) recurrent state.
+
+    "blocks.L{i}.mamba.conv"        (n_periods, n_slots, W-1, conv_dim)
+    "blocks.L{i}.mamba.ssm"         (n_periods, n_slots, H, P, N) fp32
+
+A pure SSM stack has no pools at all; its requests still take blocks
+from the allocator, as in the JAX package, so admission, preemption and
+the block counters follow the same schedule.
 
 Token position t of slot b lives at ``pool[bt[b, t // bs], t % bs]``.
 Block 0 is a reserved scratch block: inactive slots point their whole
@@ -29,11 +38,17 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, layer_pattern
-from repro_torch.models.transformer import check_supported
+from repro_torch.models.mamba import state_shapes
+from repro_torch.models.transformer import check_supported, mixer_name
 
 # pool leaf -> (dense prefill leaf, number of trailing dims after (B, S))
 POOL_LEAVES = {"kp": ("k", 2), "vp": ("v", 2),
                "ckvp": ("ckv", 1), "kropep": ("krope", 1)}
+
+# per-slot (unpaged) leaf -> its batch axis counted from the end (leaves
+# may lead with the stacked period dim): conv (B, W-1, conv_dim), ssm
+# (B, H, P, N)
+SLOT_BATCH_AXIS_FROM_END = {"conv": 3, "ssm": 4}
 
 
 def n_blocks_for(n_tokens: int, block_size: int) -> int:
@@ -152,25 +167,33 @@ def paged_cache_init(cfg: ModelConfig, n_slots: int, block_size: int,
                      n_blocks: int, nbmax: int,
                      device: torch.device) -> Dict[str, torch.Tensor]:
     """Zero-initialized pools and block tables for every attention
-    layer, prefix and period (see module docstring), in the compute
-    dtype that prefill writes."""
+    layer, prefix and period, in the compute dtype that prefill writes,
+    and zero per-slot state for every Mamba2 layer (see module
+    docstring)."""
     check_supported(cfg)
     prefix, period, n_periods = layer_pattern(cfg)
     if cfg.mla is not None:
         tails = {"ckvp": (cfg.mla.kv_lora_rank,), "kropep": (cfg.mla.qk_rope_dim,)}
-    else:
+    elif cfg.n_heads:
         tails = dict.fromkeys(("kp", "vp"),
                               (cfg.n_kv_heads, cfg.resolved_head_dim))
+    else:                                  # attention-free: no pools
+        tails = {}
     cdt = getattr(torch, cfg.compute_dtype)
-    layers = ([(f"prefix.P{i}.attn.", ()) for i in range(len(prefix))]
-              + [(f"blocks.L{j}.attn.", (n_periods,)) for j in range(len(period))])
+    layers = ([(f"prefix.P{i}.", s, ()) for i, s in enumerate(prefix)]
+              + [(f"blocks.L{j}.", s, (n_periods,)) for j, s in enumerate(period)])
     paged = {}
-    for pre, lead in layers:
+    for pre, spec, lead in layers:
+        if mixer_name(spec) == "mamba":
+            for name, (shape, dt) in state_shapes(cfg, n_slots).items():
+                paged[pre + "mamba." + name] = torch.zeros(
+                    lead + shape, dtype=dt, device=device)
+            continue
         for name, tail in tails.items():
-            paged[pre + name] = torch.zeros(
+            paged[pre + "attn." + name] = torch.zeros(
                 lead + (n_blocks, block_size) + tail, dtype=cdt, device=device)
-        paged[pre + "bt"] = torch.zeros(lead + (n_slots, nbmax),
-                                        dtype=torch.int32, device=device)
+        paged[pre + "attn.bt"] = torch.zeros(lead + (n_slots, nbmax),
+                                             dtype=torch.int32, device=device)
     return paged
 
 
@@ -191,17 +214,19 @@ def set_block_table(paged, slot: int, block_ids: List[int]):
 def splice_prefill(paged, dense, row: int, slot: int, block_ids: List[int],
                    skip_blocks: int = 0):
     """Write row ``row`` of a (group) dense prefill cache into the pool
-    blocks ``block_ids``.  The first ``skip_blocks`` blocks are
-    COW-shared (already holding this prefix) and are not written.
-    Block tables are untouched: use ``set_block_table``.  ``slot`` names
-    the per-slot state of archs that have it; the ported archs have
-    none."""
+    blocks ``block_ids`` and into per-slot row ``slot`` of the per-slot
+    state (the whole row: a preempted or finished request's state there
+    is replaced).  The first ``skip_blocks`` blocks are COW-shared
+    (already holding this prefix) and are not written.  Block tables are
+    untouched: use ``set_block_table``."""
     ids = block_ids[skip_blocks:]
-    if not ids:
-        return paged
     for name, pool in paged.items():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf not in POOL_LEAVES:
+        if leaf in SLOT_BATCH_AXIS_FROM_END:
+            ax = pool.dim() - SLOT_BATCH_AXIS_FROM_END[leaf]
+            pool.select(ax, slot).copy_(dense[name].select(ax, row))
+            continue
+        if leaf not in POOL_LEAVES or not ids:
             continue
         dense_leaf, tail_nd = POOL_LEAVES[leaf]
         src = dense[name[:-len(leaf)] + dense_leaf]    # ([n_p,] B, S, ...)

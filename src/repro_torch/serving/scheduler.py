@@ -8,7 +8,11 @@ A port of ``repro.serving.scheduler``.  It keeps:
   * **bucket-padded batched prefill**: admitted prompts are grouped,
     right-padded to a bucket length and to ``n_slots`` rows, and
     prefilled in one call per bucket; ``last_pos`` picks each row's
-    true last-token logits;
+    true last-token logits.  An SSM stack scans *through* padding (its
+    state would see the pad tokens), so for ``cfg.has_ssm_layers`` the
+    buckets are the exact prompt lengths.  The prefill writes the whole
+    per-slot state of each admitted slot, so a slot left by a finished
+    or preempted request starts clean;
   * **chunked decode**: ``decode_chunk`` lockstep steps run back to back
     on the device and the host syncs once per chunk, to read the
     chunk's tokens (the JAX package runs the chunk as one ``lax.scan``).
@@ -137,6 +141,8 @@ class PagedScheduler:
     # -- admission (bucket-padded group prefill) ---------------------------
 
     def _bucket(self, S0: int) -> int:
+        if self.cfg.has_ssm_layers:
+            return S0            # Mamba scans through padding: exact length
         for b in self.buckets:
             if b >= S0:
                 return b
