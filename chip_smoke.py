@@ -306,7 +306,46 @@ Phases, each raising on failure:
      memory; and the engine against ``fused=None`` from one state on one
      set of gradients (2 layers), 3 steps, bitwise.  Every line carries
      the card's name and power limit;
- 25. one JSON line of kernel timings against their bounds (11 rows;
+ 25. the jamba hybrid (run after phase 24; no kernel of its own: the
+     reference computes SSD and MoE outside any Pallas kernel; its one
+     attention layer a period decodes through the paged kernel): (a)
+     jamba-1.5-large-398b cut to one period (8 layers, L4 attention, 4
+     experts, top-2, every published width; 16,153,237,504 params stored
+     bf16, drawn on the card from PRNGKey(0): seconds, resident and peak
+     memory): 8 requests (distinct prompt lengths, four sharing a
+     256-token prefix, 2 arriving a round, 32 new tokens) on 8 slots on
+     the paged engine (tok/s, latency p50/p99, ms a decode step, peak
+     memory, a profiled decode chunk; every prefill at a prompt's exact
+     length; prefix blocks shared; the paged kernel launched once a
+     decode step) and on the dense engine (0 launches), the launch
+     counts set to 0 just before each and read just after, at the
+     config's capacity factor and at 16, where the free-running greedy
+     tokens are compared (logged) and the dense engine is teacher-forced
+     on the paged tokens within ``MOE_REGRET``; (b) the training cut
+     (one period at half width: d 4096, 32 heads, 8 kv heads, d_ff =
+     d_expert 12288, 4 experts; the attention projections scaled to
+     their true fan-in), one prefill of 8 prompts of 200 feeding the
+     dense and two paged caches, 4 decode steps: the paged plain
+     gather bitwise the dense engine, the kernel's attention output at
+     each launch within ``TOL`` of its plain version on the same inputs
+     (bf16 also within 2e-5 plus one bf16 step of the value), in fp32
+     and bf16; (c) fp32 at that cut, capacity factor 16: a prompt of 300,
+     4 decode steps within ``SSM_TF_REL`` of a teacher-forced prefill,
+     beside the one-ulp nudge; ``for_long_context()`` (the attention
+     layer stays global, as the reference's ``layer_pattern`` has it): a
+     prompt of 4352, the cache unrotated, 4 decode steps bitwise the
+     config without the window, teacher forcing a reading; (d) the paged
+     kernel alone at jamba's decode shape (B 8, H 64, K 8, hd 128, 25a's
+     contexts, bf16) against its plain version: its time, byte bound,
+     plain and gather+SDPA times, split plan, registers, 0 spills; (e)
+     SNGM at the training cut (4,314,856,832 bf16 params, fp32
+     momentum) through the launcher's functions, batch 8 x 512 in 2
+     micro-batches, remat, 3 steps on the engine (1 ``chunk_sumsq`` + 1
+     ``fused_update`` a step; step time, tokens/s, peak memory); then at
+     2 experts the engine and ``--fused none`` from the same seed, in
+     turn: stats, params and momentum bitwise (digests).  Every line
+     carries the card's name and power limit;
+ 26. one JSON line of kernel timings against their bounds (11 rows;
      flash attention's row is the bf16 gemma-2b prefill), then the JSON
      result line.
 
@@ -324,6 +363,7 @@ device spin before the start event, so the host's enqueue (logged as
     python3 chip_smoke.py --dense-only  # phases 1 and 22: the dense engine
     python3 chip_smoke.py --moe-only    # phases 1 and 23: DeepSeek-V2
     python3 chip_smoke.py --ssm-only    # phases 1 and 24: Mamba2
+    python3 chip_smoke.py --hybrid-only # phases 1 and 25: jamba
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -2165,16 +2205,23 @@ RESUME_SLACK = 2.0
 
 
 @contextlib.contextmanager
-def depth_cut(train_mod, n_layers):
-    """The launcher's config at ``n_layers`` layers (widths unchanged)."""
+def config_cut(train_mod, change):
+    """The launcher's ``get_config`` handing back ``change(cfg)``: a cut of
+    the arch, built here with ``dataclasses.replace`` (the launcher has no
+    flag for one, as the JAX launcher has none)."""
     get = train_mod.get_config
-    if n_layers is not None:
-        train_mod.get_config = lambda name: dataclasses.replace(
-            get(name), n_layers=n_layers)
+    train_mod.get_config = lambda name: change(get(name))
     try:
         yield
     finally:
         train_mod.get_config = get
+
+
+def depth_cut(train_mod, n_layers):
+    """The launcher's config at ``n_layers`` layers (widths unchanged;
+    None keeps the arch's depth)."""
+    return config_cut(train_mod, lambda c: c if n_layers is None else
+                      dataclasses.replace(c, n_layers=n_layers))
 
 
 def state_buffers(state):
@@ -4317,6 +4364,520 @@ def phase_ssm(torch, kernels, serve_mod, train_mod, serving, card):
             f"24e {t_e - t_d:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the jamba hybrid (Mamba2, GQA attention and top-2 MoE in a period)
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_PROMPT_25B = 200              # 25b: 8 prompts of one length
+HYBRID_LONG = 4352                   # 25c: the long-context window 4096 + 256
+HYBRID_TRAIN_STEPS = 3               # 25e
+
+
+def hybrid_cuts(cfg):
+    """The two configurations the card holds (the full model's 72 layers
+    of 16 experts are 398 G params): serving, one period (8 layers, the
+    attention layer L4) with 4 experts at every published width; and
+    training, the same period at half width (d 4096, 32 heads of 128, 8
+    kv heads, d_ff = d_expert 12288), since SNGM's bf16 params and
+    gradients and fp32 momentum take 8 B a param."""
+    serve = dataclasses.replace(cfg, n_layers=8, moe=dataclasses.replace(
+        cfg.moe, n_experts=4))
+    train = dataclasses.replace(serve, d_model=4096, n_heads=32, n_kv_heads=8,
+                                d_ff=12288, moe=dataclasses.replace(
+                                    serve.moe, d_expert=12288))
+    return serve, train
+
+
+def hybrid_traffic(vocab: int):
+    """25a's prompts: MOE_REQUESTS distinct lengths in [PROMPT_LO,
+    PROMPT_HI]; the SHARERS begin with one SHARED_PREFIX-token prefix (their
+    lengths drawn past it), so copy-on-write shares the attention layer's
+    pool blocks while each slot keeps its own SSM state."""
+    rng = np.random.RandomState(25)
+    long_ = rng.choice(np.arange(SHARED_PREFIX + 16, PROMPT_HI + 1),
+                       len(SHARERS), replace=False)
+    rest = [n for n in range(PROMPT_LO, PROMPT_HI + 1) if n not in long_]
+    short = rng.choice(rest, MOE_REQUESTS - len(SHARERS), replace=False)
+    prefix = rng.randint(0, vocab, SHARED_PREFIX)
+    lengths = iter(short)
+    shared = iter(long_)
+    prompts = []
+    for i in range(MOE_REQUESTS):
+        if i in SHARERS:
+            n = int(next(shared))
+            p = np.concatenate([prefix, rng.randint(0, vocab, n - SHARED_PREFIX)])
+        else:
+            p = rng.randint(0, vocab, int(next(lengths)))
+        prompts.append(p.astype(np.int32))
+    return prompts
+
+
+def hybrid_serve_paged(torch, kernels, serve_mod, cfg, params, rt, prompts, card,
+                       label):
+    """25a: the prompts on the paged engine, PER_ROUND arriving a round (so
+    a sharer admitted after the first finds its prefix's blocks
+    registered), the launch counts set to 0 just before and read just
+    after: the paged kernel once a decode step (one attention layer),
+    nothing else; every prefill at a prompt's exact length; prefix
+    blocks shared.  Returns ({rid: tokens}, stats)."""
+    sched = serve_mod.build_scheduler(cfg, params, rt, slots=MOE_SLOTS,
+                                      block_size=BLOCK_SIZE, blocks=0,
+                                      ctx=PROMPT_HI + MOE_MAX_NEW,
+                                      decode_chunk=DECODE_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    finished = serve_mod.serve(sched, prompts, MOE_MAX_NEW, per_round=PER_ROUND)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    st = sched.stats
+    lats = [r.t_done - r.t_submit for r in finished]
+    tokens = sum(len(r.out) for r in finished)
+    shapes = sorted(st["prefill_shapes"])
+    n_attn = sum(s.mixer != "mamba" for s in layer_specs(cfg))
+    log(f"[{card}] 25a paged, {label}: {len(finished)} requests (prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))}, {PER_ROUND} "
+        f"arrivals a round), {tokens} tokens in {dt:.2f} s: {tokens / dt:.1f} "
+        f"tok/s; latency p50 {np.percentile(lats, 50):.3f} s p99 "
+        f"{np.percentile(lats, 99):.3f} s; {st['decode_steps']} decode steps, "
+        f"{st['decode_s'] / st['decode_steps'] * 1e3:.2f} ms a decode step; "
+        f"prefill {st['prefill_s']:.3f} s in {st['prefill_calls']} calls, "
+        f"shapes {shapes}; COW-shared blocks {st['cow_shared_blocks']}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"paged_decode_attention launches {launches['paged_decode_attention']} "
+        f"= {n_attn} attention layer x {st['decode_steps']} decode steps")
+    want = dict.fromkeys(launches, 0)
+    want["paged_decode_attention"] = n_attn * st["decode_steps"]
+    if launches != want or not st["decode_steps"]:
+        raise AssertionError(f"25a paged: launches {launches}, want {want}")
+    if shapes != sorted((MOE_SLOTS, len(p)) for p in prompts):
+        raise AssertionError(f"25a: prefill shapes {shapes} are not the prompts' "
+                             f"exact lengths")
+    if st["cow_shared_blocks"] < 1:
+        raise AssertionError("25a: no prefix block was shared")
+    sched.alloc.check()
+    if sched.alloc.used_blocks:
+        raise AssertionError(f"25a: {sched.alloc.used_blocks} blocks leaked")
+    return moe_tokens(cfg, "paged", finished, "25a"), st
+
+
+def layer_specs(cfg):
+    from repro_torch.configs.base import layer_pattern
+    prefix, period, n_periods = layer_pattern(cfg)
+    return list(prefix) + list(period) * n_periods
+
+
+def phase_hybrid_serve(torch, kernels, serve_mod, cfg, rt, card):
+    """25a: the serving cut (one period, 4 experts, full widths), bf16,
+    drawn on the card from PRNGKey(0): the 8 requests on the paged engine
+    and then the dense one at the config's capacity factor, then both at
+    capacity factor 16 (nothing drops), where the free-running greedy
+    tokens are compared (logged) and the dense engine is teacher-forced
+    on the paged tokens (each within MOE_REGRET of the dense top)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, n_params = serve_mod.load_model(cfg, rt, seed=0)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    log(f"[{card}] 25a {cfg.name} cut to one period ({cfg.n_layers} layers, "
+        f"{cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, d {cfg.d_model}): "
+        f"{n_params:,} params stored {cfg.param_dtype}, drawn on the card from "
+        f"PRNGKey(0) in {t_load:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while drawing")
+    prompts = hybrid_traffic(cfg.vocab_size)
+    profiled = False
+    for c, label in ((cfg, f"capacity factor {cfg.moe.capacity_factor}"),
+                     (dataclasses.replace(cfg, moe=dataclasses.replace(
+                         cfg.moe, capacity_factor=16.0)),
+                      "capacity factor 16 (nothing drops)")):
+        paged, _ = hybrid_serve_paged(torch, kernels, serve_mod, c, params, rt,
+                                      prompts, card, label)
+        if not profiled:
+            moe_profile_decode(torch, serve_mod, c, params, rt, prompts, card,
+                               tag="25a")
+            profiled = True
+        dense = moe_serve_dense(torch, kernels, serve_mod, c, params, rt, prompts,
+                                card, label, tag="25a")
+        moe_agreement(paged, dense, card, label, tag="25a")
+    moe_teacher_forced(torch, serve_mod, c, params, rt, prompts, paged, card,
+                       label, tag="25a")
+
+
+def attention_at_true_fan_in(params, cfg):
+    """Scale the attention layer's stacked q, k and v projections, in
+    place, from the reference init's std 1 to 1/sqrt(d_model), their
+    true fan-in (2^-6 at d 4096: exact).  The reference reads a stacked
+    4-dim leaf's fan-in from its layer axis (1 here), so its scores run
+    to ~1e3 and the softmax is one-hot: an fp32 rounding of a score then
+    moves the output by ~1e-2, far past row 9's absolute bounds, which
+    were set for unit-scale inputs."""
+    k = cfg.d_model ** -0.5
+    for name, t in params.items():
+        if name.rsplit(".", 1)[-1] in ("wq", "wk", "wv") and ".attn." in name:
+            t.mul_(k)
+
+
+def phase_hybrid_dense_paged(torch, kernels, serving, layers, ops, ref, cfg,
+                             params, rt, card, steps=4):
+    """25b: at the training cut's widths (the attention projections at
+    their true fan-in, ``attention_at_true_fan_in``), one prefill of 8
+    prompts of one length feeds the dense cache (padded to the pools' gathered length)
+    and two paged caches; ``steps`` decode steps teacher-forced on the
+    dense engine's tokens: the paged plain gather bitwise the dense
+    engine; the kernel path's attention output, at each launch, within
+    row 9's bounds of its plain version on the same inputs (TOL, and in
+    bf16 also 2e-5 plus one bf16 step of the value); its logits logged."""
+    from repro_torch.models import Runtime
+    from repro_torch.serving import paged_cache as pc
+    rng = np.random.RandomState(26)
+    toks = rng.randint(0, cfg.vocab_size, (MOE_SLOTS, HYBRID_PROMPT_25B)).astype(np.int32)
+    S = HYBRID_PROMPT_25B
+    logits, prefilled = serving.make_prefill_step(cfg, rt)(
+        params, torch.from_numpy(toks).to(rt.device))
+    nbmax = pc.n_blocks_for(S + steps, BLOCK_SIZE)
+    caches = []
+    for _ in range(2):
+        paged = pc.paged_cache_init(cfg, MOE_SLOTS, BLOCK_SIZE, 1 + MOE_SLOTS * nbmax,
+                                    nbmax, rt.device)
+        for row in range(MOE_SLOTS):
+            ids = list(range(1 + row * nbmax, 1 + (row + 1) * nbmax))[::-1]
+            pc.set_block_table(paged, row, ids)
+            pc.splice_prefill(paged, prefilled, row, row, ids)
+        caches.append(paged)
+    dense = serving.pad_cache(prefilled, nbmax * BLOCK_SIZE - S)
+    del prefilled
+    step_d = serving.make_serve_step(cfg, rt)
+    step_g = serving.make_serve_step(cfg, Runtime(rt.device, paged_kernel=False))
+    step_k = serving.make_serve_step(cfg, Runtime(rt.device, paged_kernel=True))
+    worst = {"kernel": 0.0, "over": 0.0, "logits": 0.0}
+    kernel = layers.paged_attention
+
+    def checked(q, kp, vp, bt, pos, **kw):
+        o = kernel(q, kp, vp, bt, pos, **kw)
+        r = ref(q, kp, vp, bt, pos, **kw)
+        if not bool(torch.isfinite(o).all()):
+            raise AssertionError("25b: kernel output is not finite")
+        worst["kernel"] = max(worst["kernel"], (o.float() - r.float()).abs().max().item())
+        worst["over"] = max(worst["over"], over_bound(torch, o, r, TOL["float32"])
+                            if o.dtype == torch.bfloat16 else 0.0)
+        return o
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    pos = torch.full((MOE_SLOTS,), S, dtype=torch.int32, device=rt.device)
+    bitwise, agree = True, 0
+    layers.paged_attention = checked
+    kernels.reset_launches()
+    try:
+        for i in range(steps):
+            nd, ld, dense = step_d(params, dense, tok, pos)
+            _, lg, caches[0] = step_g(params, caches[0], tok, pos)
+            nk, lk, caches[1] = step_k(params, caches[1], tok, pos)
+            if not bool(torch.isfinite(ld).all()):
+                raise AssertionError("25b: dense logits are not finite")
+            bitwise &= bool(torch.equal(ld, lg))
+            worst["logits"] = max(worst["logits"],
+                                  ((lk - ld).abs().max() / ld.abs().max()).item())
+            agree += int((nk == nd).sum())
+            tok, pos = nd[:, None], pos + 1
+    finally:
+        layers.paged_attention = kernel
+    launches = kernels.launch_counts()
+    n_attn = sum(s.mixer != "mamba" for s in layer_specs(cfg))
+    tol = TOL[cfg.compute_dtype]
+    log(f"[{card}] 25b ({cfg.compute_dtype}, {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, context {nbmax * BLOCK_SIZE}): dense vs paged plain "
+        f"gather over {steps} steps: {'bitwise' if bitwise else 'NOT bitwise'}; "
+        f"the kernel's attention output vs its plain version on the same "
+        f"inputs, worst {worst['kernel']:.3g} (bound {tol}"
+        + (f"; {worst['over']:.3g} of 2e-5 + one bf16 step" if cfg.compute_dtype
+           == "bfloat16" else "") +
+        f"); kernel path vs dense logits {worst['logits']:.3g} of max|logits|, "
+        f"greedy tokens agree {agree}/{steps * MOE_SLOTS} (readings); "
+        f"paged_decode_attention launches {launches['paged_decode_attention']}")
+    if not bitwise:
+        raise AssertionError(f"25b: dense and paged plain gather differ in "
+                             f"{cfg.compute_dtype}")
+    if worst["kernel"] > tol or worst["over"] > 1:
+        raise AssertionError(f"25b: the kernel's output is {worst} from plain")
+    if launches["paged_decode_attention"] != n_attn * steps or sum(
+            launches.values()) != n_attn * steps:
+        raise AssertionError(f"25b: launches {launches}")
+
+
+def phase_hybrid_teacher(torch, serving, cfg, params, rt, card, steps=4):
+    """25c, fp32 at the training cut's widths, capacity factor 16 (a
+    prefill of many tokens and a decode step of one then drop nothing
+    alike): a prompt of SSM_PROMPT_24C tokens, ``steps`` decode steps
+    within SSM_TF_REL of a teacher-forced prefill of each prefix, beside
+    the one-ulp nudge; then ``for_long_context()``, which leaves the
+    attention layer global as the reference's ``layer_pattern`` does (its
+    hybrid branch never returns "attn_local"): a prompt of HYBRID_LONG
+    tokens, past the window, whose cache must not rotate, ``steps``
+    decode steps bitwise the same decode on the config without the
+    window, and against teacher forcing a reading."""
+    c = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                         capacity_factor=16.0))
+    prefill = serving.make_prefill_step(c, rt)
+    step = serving.make_serve_step(c, rt)
+    S = SSM_PROMPT_24C
+    toks = torch.from_numpy(np.random.RandomState(25).randint(
+        0, c.vocab_size, (1, HYBRID_LONG + steps)).astype(np.int32)).to(rt.device)
+    first, cache = prefill(params, toks[:, :S])
+    cache = serving.pad_cache(cache, steps)
+    worst = 0.0
+    for i in range(steps):
+        pos = torch.full((1,), S + i, dtype=torch.int32, device=rt.device)
+        _, got, cache = step(params, cache, toks[:, S + i:S + i + 1], pos)
+        want = prefill(params, toks[:, :S + i + 1])[0][:, -1]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("25c: decode logits are not finite")
+        worst = max(worst, ((got - want).abs().max() / want.abs().max()).item())
+    leaf = "blocks.L0.mamba.out_proj"
+    nudged = dict(params, **{leaf: params[leaf] * (1 + 2**-23)})
+    ulp = ((prefill(nudged, toks[:, :S])[0] - first).abs().max()
+           / first.abs().max()).item()
+    del nudged
+    log(f"[{card}] 25c ({c.n_layers} layers, d {c.d_model}, fp32, capacity "
+        f"factor 16, prompt {S}, chunk {c.ssm.chunk}): decode vs a "
+        f"teacher-forced prefill over {steps} steps, worst {worst:.3g} of "
+        f"max|logits| (bound {SSM_TF_REL}); {leaf} scaled by 1 + 2^-23 moves "
+        f"the prefill's logits by {ulp:.3g}")
+    if worst > SSM_TF_REL:
+        raise AssertionError(f"25c: decode differs from teacher forcing by {worst:.3g}")
+    lc = c.for_long_context()
+    kinds = sorted({s.mixer for s in layer_specs(lc)})
+    out, t_prefill = {}, 0.0
+    for name, cc in (("long", lc), ("base", c)):
+        t0 = time.perf_counter()
+        _, cache = serving.make_prefill_step(cc, rt)(params, toks[:, :HYBRID_LONG])
+        torch.cuda.synchronize()
+        t_prefill = t_prefill or time.perf_counter() - t0
+        sp = [v for k, v in cache.items() if k.endswith("attn.slot_pos")]
+        if [t.shape[-1] for t in sp] != [HYBRID_LONG] or bool(sp[0][..., 0].any()):
+            raise AssertionError(f"25c: the {name} cache rotated: "
+                                 f"{[tuple(t.shape) for t in sp]}")
+        cache = serving.pad_cache(cache, steps)
+        st = serving.make_serve_step(cc, rt)
+        out[name] = []
+        for i in range(steps):
+            pos = torch.full((1,), HYBRID_LONG + i, dtype=torch.int32, device=rt.device)
+            _, got, cache = st(params, cache, toks[:, HYBRID_LONG + i:][:, :1], pos)
+            out[name].append(got)
+        del cache
+    same = all(torch.equal(a, b) for a, b in zip(out["long"], out["base"]))
+    want = prefill(params, toks[:, :HYBRID_LONG + 1])[0][:, -1]
+    tf = ((out["long"][0] - want).abs().max() / want.abs().max()).item()
+    log(f"[{card}] 25c for_long_context() (window {lc.window}; mixers "
+        f"{kinds}: the attention layer stays global, as in the reference): "
+        f"prompt {HYBRID_LONG} in {t_prefill:.2f} s, the cache unrotated "
+        f"({HYBRID_LONG} slots); {steps} decode steps "
+        f"{'bitwise' if same else 'NOT bitwise'} the config without the "
+        f"window; the first step vs a teacher-forced prefill {tf:.3g} of "
+        f"max|logits| (a reading); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not same or kinds != ["attn", "mamba"]:
+        raise AssertionError(f"25c: the long-context variant decodes otherwise "
+                             f"({kinds}, bitwise {same})")
+
+
+def phase_hybrid_kernel(torch, ops, ref, prompts, card):
+    """25d: the paged kernel alone at jamba's decode shape (B 8, H 64, K 8,
+    hd 128, block size 16, bf16, 25a's contexts 32 tokens into the
+    generation) against its plain version; its time, byte bound, plain
+    and gather+SDPA times, split plan, registers and spills (none)."""
+    import torch.nn.functional as F
+    nbmax = -(-(PROMPT_HI + MOE_MAX_NEW) // BLOCK_SIZE)
+    case = make_case(torch, MOE_SLOTS, 64, 8, 128, BLOCK_SIZE, nbmax,
+                     1 + MOE_SLOTS * nbmax, [len(p) + 32 for p in prompts],
+                     "bfloat16", seed=25)
+    q, kp, vp, bt, pos = case
+    B, H, hd = q.shape
+    K, T = kp.shape[2], nbmax * BLOCK_SIZE
+    err = max_err(torch, ops, ref, case)
+    nbytes, flops = paged_work(torch, case, {})
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    split_len, n_split = ops.split_plan(T, BLOCK_SIZE, B * K, ops.sm_count(q.device))
+    res = paged_resources(torch, ops, q.dtype, hd, H // K)
+    valid = torch.arange(T, device="cuda")[None, :] <= pos[:, None].long()
+
+    def library():
+        kd = kp[bt.long()].reshape(B, T, K, hd).transpose(1, 2)
+        vd = vp[bt.long()].reshape(B, T, K, hd).transpose(1, 2)
+        return F.scaled_dot_product_attention(q[:, :, None], kd, vd,
+                                              attn_mask=valid[:, None, None, :],
+                                              enable_gqa=True)[:, :, 0]
+    lib_err = (library().float() - ref(*case).float()).abs().max().item()
+    ms, enq = time_kernel(torch, lambda: ops.paged_attention(*case))
+    lib_ms = time_calls(torch, library)
+    plain_ms = time_calls(torch, lambda: ref(*case), n=10)
+    log(f"[{card}] 25d paged_decode_attention at jamba's decode shape (B {B} "
+        f"H {H} K {K} hd {hd} bs {BLOCK_SIZE}, {nbmax} columns, frontiers "
+        f"{int(pos.min())}-{int(pos.max())}, bf16): max abs err vs plain "
+        f"{err:.3g} (bound {TOL['bfloat16']}, and 2e-5 + one bf16 step); kernel "
+        f"{ms:.4f} ms (host enqueue {enq:.4f} ms), bound {bound_ms:.4f} ms by "
+        f"bytes ({nbytes:,} bytes), {100 * bound_ms / ms:.1f} % of it; plain "
+        f"{plain_ms:.4f} ms; gather+SDPA {lib_ms:.4f} ms (max abs err vs plain "
+        f"{lib_err:.3g}); split_len {split_len}, n_split {n_split}, "
+        f"{B * K * n_split} blocks; {res and res['registers']} registers, "
+        f"{res and res['spill_bytes']} bytes spilled")
+    if err > TOL["bfloat16"]:
+        raise AssertionError(f"25d: max abs err {err:.3g}")
+    if res is None or res["spill_bytes"]:
+        raise AssertionError(f"25d: its kernel's ptxas lines {res}: no spills allowed")
+
+
+def state_digest(torch, leaves, chunk=1 << 26):
+    """Per leaf (sorted by name), per chunk of ``chunk`` elements: the sum,
+    modulo 2^64, of each element's bit pattern times a fixed random
+    odd weight.  Equal states give equal digests (integer sums do not
+    depend on their order); a changed bit changes its chunk's sum."""
+    g = torch.Generator(device="cuda").manual_seed(25)
+    w = torch.randint(0, 1 << 30, (chunk,), generator=g, device="cuda") * 2 + 1
+    iview = {2: torch.int16, 4: torch.int32}
+    out = {}
+    for name in sorted(leaves):
+        x = leaves[name].detach().reshape(-1).view(iview[leaves[name].element_size()])
+        out[name] = [int((x[i:i + chunk].to(torch.int64) * w[:x[i:i + chunk].numel()])
+                         .sum()) for i in range(0, x.numel(), chunk)]
+    return out
+
+
+def hybrid_train_run(torch, kernels, train_mod, cfg, card, fused, label):
+    """One SNGM run through the launcher's own ``build``/``train`` at
+    ``cfg`` (batch 8 x 512 in 2 micro-batches, remat, wd 1e-4,
+    HYBRID_TRAIN_STEPS steps), the launch counts set to 0 just before and
+    read just after: 1 chunk_sumsq + 1 fused_update a step on the engine,
+    nothing with ``--fused none``.  Returns (step records, the final
+    params' and momentum's digests)."""
+    from repro_torch.core.optim import to_pytree
+    args = train_mod.parse_args(
+        ["--arch", HYBRID_ARCH, "--steps", str(HYBRID_TRAIN_STEPS), "--batch",
+         "8", "--seq", "512", "--n-micro", "2", "--weight-decay", "1e-4",
+         "--log-every", "1", "--device", "cuda", "--seed", "0", "--optimizer",
+         "sngm", "--fused", fused])
+    t0 = time.perf_counter()
+    with config_cut(train_mod, lambda _: cfg):
+        run = train_mod.build(args)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    state, mem = train_mod.train(args, run)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    recs = [m for _, m in mem.steps]
+    final = {"params": state.params_view,
+             "momentum": to_pytree(state.opt_state).momentum}
+    kinds = {what: sorted({str(v.dtype).removeprefix("torch.")
+                           for v in leaves.values()})
+             for what, leaves in final.items()}
+    steady = [m["step_time_s"] for m in recs[1:]]
+    step_s = float(np.median(steady))
+    losses = ", ".join(f"{m['loss']:.4f}" for m in recs)
+    auxes = ", ".join(f"{m['aux_loss']:.6f}" for m in recs)
+    log(f"[{card}] 25e SNGM fused={fused}, {label}: {run.n_params:,} params "
+        f"{kinds['params']}, momentum {kinds['momentum']}, built in "
+        f"{t_build:.1f} s; losses {losses}; aux_loss {auxes}; step 0 "
+        f"{recs[0]['step_time_s']:.3f} s, then "
+        f"{', '.join(f'{s:.3f}' for s in steady)} s; median {step_s:.3f} s = "
+        f"{args.batch * args.seq / step_s:.0f} tokens/s; peak device memory "
+        f"{peak_gib:.2f} GiB; launches a step: chunk_sumsq "
+        f"{launches['chunk_sumsq'] / args.steps:g}, fused_update "
+        f"{launches['fused_update'] / args.steps:g}")
+    want = dict.fromkeys(launches, 0)
+    if fused == "multi_tensor":
+        want.update(chunk_sumsq=args.steps, fused_update=args.steps)
+    if launches != want:
+        raise AssertionError(f"25e {fused}: launches {launches}, want {want}")
+    if len(recs) != args.steps or not all(
+            np.isfinite(m[k]) for m in recs
+            for k in ("loss", "grad_norm", "lr", "aux_loss")):
+        raise AssertionError(f"25e {fused}: missing or non-finite stats")
+    if kinds != {"params": ["bfloat16"], "momentum": ["float32"]}:
+        raise AssertionError(f"25e: state dtypes {kinds}")
+    digest = {what: state_digest(torch, leaves) for what, leaves in final.items()}
+    del run, state, mem, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs, digest
+
+
+def phase_hybrid_train(torch, kernels, train_mod, cfg, card):
+    """25e: SNGM at the training cut (one period at half width, bf16
+    params and gradients, fp32 momentum) on the engine; then the engine
+    against ``fused=None`` from the same seed, run in turn, at the same
+    cut with 2 experts (3,106,864,512 params): the plain path's
+    functional step holds a second momentum and params beside the first
+    (about 18 B a param at its peak, past the card at 4 experts): every
+    step's stats and the final params and momentum bitwise (digests,
+    ``state_digest``)."""
+    hybrid_train_run(torch, kernels, train_mod, cfg, card, "multi_tensor",
+                     f"the training cut (d {cfg.d_model}, {cfg.moe.n_experts} "
+                     f"experts)")
+    two = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=2))
+    runs = {f: hybrid_train_run(torch, kernels, train_mod, two, card, f,
+                                "2 experts") for f in ("multi_tensor", "none")}
+    (ra, da), (rb, db) = runs["multi_tensor"], runs["none"]
+    keys = ("loss", "grad_norm", "lr", "aux_loss")
+    same = {"stats": all(a[k] == b[k] for a, b in zip(ra, rb) for k in keys)}
+    same.update({what: da[what] == db[what] for what in da})
+    log(f"[{card}] 25e the engine vs fused=None from the same seed, run in "
+        f"turn, {HYBRID_TRAIN_STEPS} steps (2 experts): "
+        + ", ".join(f"{what} {'bitwise' if ok else 'NOT bitwise'}"
+                    for what, ok in same.items()))
+    if not all(same.values()):
+        raise AssertionError(f"25e: the engine and fused=None differ: {same}")
+
+
+def phase_hybrid(torch, kernels, serve_mod, train_mod, serving, layers, ops, ref,
+                 card):
+    """Phase 25, 25a-25e, each sub-phase's seconds logged, every line
+    printed led by the card's name and power limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_runtime
+    serve_cfg, train_cfg = hybrid_cuts(get_config(HYBRID_ARCH))
+    rt = make_runtime("cuda")
+    with contextlib.redirect_stdout(CardLines(sys.stdout, card)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_hybrid_serve(torch, kernels, serve_mod, serve_cfg, rt, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_a = time.perf_counter()
+        t_bc = {}
+        for dtype in ("float32", "bfloat16"):
+            t = time.perf_counter()
+            c = dataclasses.replace(train_cfg, compute_dtype=dtype)
+            params, _ = serve_mod.load_model(c, rt, seed=0)
+            attention_at_true_fan_in(params, c)
+            phase_hybrid_dense_paged(torch, kernels, serving, layers, ops, ref, c,
+                                     params, rt, card)
+            t_bc["b"] = t_bc.get("b", 0.0) + time.perf_counter() - t
+            if dtype == "float32":
+                t = time.perf_counter()
+                torch.cuda.reset_peak_memory_stats()
+                phase_hybrid_teacher(torch, serving, c, params, rt, card)
+                t_bc["c"] = time.perf_counter() - t
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        t_c = time.perf_counter()
+        phase_hybrid_kernel(torch, ops, ref, hybrid_traffic(serve_cfg.vocab_size),
+                            card)
+        torch.cuda.empty_cache()
+        t_d = time.perf_counter()
+        phase_hybrid_train(torch, kernels, train_mod, train_cfg, card)
+        t_e = time.perf_counter()
+        log(f"[{card}] phase 25: {t_e - t0:.1f} s (25a {t_a - t0:.1f} s, 25b "
+            f"{t_bc['b']:.1f} s, 25c {t_bc['c']:.1f} s, 25d {t_d - t_c:.1f} s, "
+            f"25e {t_e - t_d:.1f} s)")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="On-card smoke run of the port.")
@@ -4354,6 +4915,12 @@ def main(argv=None) -> int:
                          "width: serving on both engines, dense vs paged, "
                          "teacher forcing, ssd_chunked, SNGM training on the "
                          "engine); prints no kernel rows")
+    ap.add_argument("--hybrid-only", action="store_true",
+                    help="phases 1 and 25 only (the jamba hybrid: one period "
+                         "served at full width on both engines, dense vs "
+                         "paged, teacher forcing and the long-context variant, "
+                         "the paged kernel at its decode shape, SNGM training "
+                         "on the engine); prints no kernel rows")
     ap.add_argument("--ema-only", action="store_true",
                     help="phases 1 and 21 only (EMA shadow parameters on the "
                          "engine at full width, against the interpreter and "
@@ -4394,7 +4961,7 @@ def main(argv=None) -> int:
     libs = {"paged_attention": [ops.SOURCE]}
     if args.convnet_only or args.ema_only or args.moe_only or args.ssm_only:
         libs = {mt_ops.LIB_NAME: [mt_ops.SOURCE]}
-    elif args.chains_only or args.ckpt_only or args.data_only:
+    elif args.chains_only or args.ckpt_only or args.data_only or args.hybrid_only:
         libs[mt_ops.LIB_NAME] = [mt_ops.SOURCE]
     elif not (args.paged_only or args.dense_only):
         libs.update({mt_ops.LIB_NAME: [mt_ops.SOURCE],
@@ -4429,6 +4996,9 @@ def main(argv=None) -> int:
         phase_moe(torch, kernels, serve_mod, train_mod, serving, card)
     elif args.ssm_only:
         phase_ssm(torch, kernels, serve_mod, train_mod, serving, card)
+    elif args.hybrid_only:
+        phase_hybrid(torch, kernels, serve_mod, train_mod, serving, layers, ops,
+                     ref, card)
     elif not args.ops_only:
         err = phase_kernel(torch, ops, ref)
         rt = make_runtime("cuda")
@@ -4482,11 +5052,14 @@ def main(argv=None) -> int:
         phase_ema(torch, kernels, train_mod, cfg)
         phase_moe(torch, kernels, serve_mod, train_mod, serving, card)
         phase_ssm(torch, kernels, serve_mod, train_mod, serving, card)
+        phase_hybrid(torch, kernels, serve_mod, train_mod, serving, layers, ops,
+                     ref, card)
         t_train = time.perf_counter()
 
     if not (args.paged_only or args.chains_only or args.ckpt_only
             or args.data_only or args.convnet_only or args.ema_only
-            or args.dense_only or args.moe_only or args.ssm_only):
+            or args.dense_only or args.moe_only or args.ssm_only
+            or args.hybrid_only):
         phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
         cases = ops_cases(torch)
         outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)

@@ -1,9 +1,12 @@
 """Model assembly for the decoder-only stacks, built from the layers.
 
 A port of ``repro.models.transformer``: ``model_defs``, ``block_apply``
-(GQA or MLA attention, then a dense or MoE FFN; or a Mamba2 mixer alone,
-``models.mamba``) and ``forward`` in ``train``, ``prefill`` and
-``decode`` modes.  The JAX package scans the
+(GQA or MLA attention, or a Mamba2 mixer (``models.mamba``), then a
+dense or MoE FFN; a pure Mamba2 block is its mixer alone) and
+``forward`` in ``train``, ``prefill`` and ``decode`` modes.  The jamba
+hybrid mixes them in one period (``layer_pattern``: 8 layers, L4
+attention, the rest Mamba2, MoE FFNs on the odd layers), every leaf
+stored in bf16 and cast at its use.  The JAX package scans the
 stacked layer period with ``lax.scan``; here a Python loop walks the
 stacked leading dim, split once with ``unbind`` so that the backward
 pass stacks each leaf's gradient in one piece.  Leading prefix layers
@@ -11,8 +14,8 @@ pass stacks each leaf's gradient in one piece.  Leading prefix layers
 before the periods and carry no stacked dim.  Per-block remat
 (``Runtime.remat``) is ``torch.utils.checkpoint``, the JAX package's
 ``jax.checkpoint``; its sqrt-remat grouping of periods is not ported.
-Hybrid (attention + SSM) and encoder-decoder stacks are not ported yet
-and raise ``NotImplementedError``.
+Encoder-decoder stacks are not ported yet and raise
+``NotImplementedError``.
 
 Parameters are the flat ``{dotted.path: Tensor}`` dict of
 ``models.param`` ("blocks.L0.attn.wq" has shape (n_periods, d, H, hd);
@@ -23,7 +26,8 @@ latents only), "prefix.P{i}.attn.*" unstacked; a windowed layer keeps a
 ring of its last W positions once the prompt passes the window.  A
 Mamba2 layer's cache is its per-sequence state, "blocks.L{i}.mamba.conv"
 (n_periods, B, W-1, conv_dim) and ".ssm" (n_periods, B, H, P, N), the
-same in the dense and the paged cache.  Decode
+same in the dense and the paged cache; a hybrid's cache holds both
+kinds, keyed by each layer's mixer.  Decode
 takes either that dense cache (``serving.engine``'s ``pad_cache`` grows
 it) or the paged one, "{kp,vp,bt}" / MLA "{ckvp,kropep,bt}"
 (``serving.paged_cache``), told apart by their keys, writes each
@@ -43,22 +47,19 @@ from repro_torch.models.param import ParamDef, map_defs, stack
 from repro_torch.models.runtime import Runtime
 
 # matmul weights (and Mamba's conv), cast once to the compute dtype
-# (``cast_for_compute``); MoE's router stays fp32 (the JAX package routes
-# from fp32 logits), and the norm scales (kv_norm, q_norm, Mamba's norm)
-# and Mamba's A_log, D and dt_bias stay as stored
+# (``cast_for_compute``); MoE's router (routed from fp32 logits), the norm
+# scales (kv_norm, q_norm, Mamba's norm) and Mamba's A_log, D and dt_bias
+# stay as stored, bf16 in jamba's tree, and are cast to fp32 at their use
 MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd",
                  "wkv_a", "wk_b", "wv_b", "wq_a", "wq_b",
                  "wz", "wx", "wB", "wC", "wdt", "out_proj", "conv_w", "conv_b")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    hybrid = cfg.ssm is not None and cfg.attn_every != 0
-    for what, present in (("hybrid attention + SSM", hybrid),
-                          ("encoder-decoder", cfg.is_encoder_decoder)):
-        if present:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet (ROADMAP.md Queue A, "
-                f"'Rest of the arch zoo')")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder is not ported yet (ROADMAP.md "
+            f"Queue A, 'Rest of the arch zoo')")
 
 
 # ---------------------------------------------------------------------------

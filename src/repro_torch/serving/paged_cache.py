@@ -16,9 +16,13 @@ nothing to page in an O(1) recurrent state.
     "blocks.L{i}.mamba.conv"        (n_periods, n_slots, W-1, conv_dim)
     "blocks.L{i}.mamba.ssm"         (n_periods, n_slots, H, P, N) fp32
 
-A pure SSM stack has no pools at all; its requests still take blocks
-from the allocator, as in the JAX package, so admission, preemption and
-the block counters follow the same schedule.
+A hybrid (jamba) holds both kinds in one dict, keyed by each layer's
+mixer: pools and tables for its attention layer, per-slot state for its
+Mamba2 layers.  ``splice_prefill`` skips a COW-shared prefix's pool
+blocks but writes every per-slot state row whole, and copy-on-write
+shares pool blocks only.  A pure SSM stack has no pools at all; its
+requests still take blocks from the allocator, as in the JAX package, so
+admission, preemption and the block counters follow the same schedule.
 
 Token position t of slot b lives at ``pool[bt[b, t // bs], t % bs]``.
 Block 0 is a reserved scratch block: inactive slots point their whole
