@@ -23,7 +23,9 @@ the DeepSeek-V2 family (MLA attention, capacity-dispatched MoE):
 deepseek-v2-lite-16b served at full width on both engines and trained
 with SNGM on the engine; and the Mamba2 (SSD) family, a pure SSM stack:
 mamba2-1.3b served at full width on both engines and trained with SNGM
-on the engine.  Holds every kernel (11 rows: the deferred apply has its own) against
+on the engine; and the jamba hybrid; and the Whisper encoder-decoder,
+whisper-large-v3 served through ``greedy_generate`` at full width and
+depth and trained with SNGM on the engine.  Holds every kernel (11 rows: the deferred apply has its own) against
 its plain PyTorch version.
 
     python3 chip_smoke.py
@@ -345,7 +347,30 @@ Phases, each raising on failure:
      2 experts the engine and ``--fused none`` from the same seed, in
      turn: stats, params and momentum bitwise (digests).  Every line
      carries the card's name and power limit;
- 26. one JSON line of kernel timings against their bounds (11 rows;
+ 26. the Whisper encoder-decoder (run after phase 25; no kernel of its
+     own: the reference's LayerNorm, GELU MLP, encoder and cross
+     attention reach no Pallas kernel, and its paged engine refuses an
+     encoder-decoder; its SNGM steps run rows 1 and 2): (a)
+     whisper-large-v3 at full width and depth (32 + 32 layers,
+     1,535,219,200 params, matmul weights bf16 as drawn on the card from
+     PRNGKey(0)) through ``greedy_generate`` on the dense cache: 8
+     prompts of 32 tokens, (8, 1500, 1280) frame embeddings from
+     ``WHISPER_SEED``, 32 new tokens, run twice, the tokens bitwise
+     equal and equal to a timed prefill + decode loop; resident bytes,
+     the cross cache (1,966,080,000 B), encoder, prefill and decode-step
+     ms, tok/s, peak memory; (b) fp32 at full depth, the matmul weights
+     at their true fan-in, B 2, prompt 24, 4 decode steps each within
+     ``WHISPER_TF_REL`` of a teacher-forced prefill, beside the one-ulp
+     nudge; (c) the card against the CPU: fp32 ``forward`` at 2 + 2
+     layers on the same weights (true fan-in) and frames, prefill
+     logits within ``WHISPER_CPU_REL``; (d) SNGM on the engine through the launcher's
+     functions at full depth, batch 8 x 128 in 2 micro-batches with
+     remat, 3 steps (one fp32 bucket, 1 ``chunk_sumsq`` + 1
+     ``fused_update`` a step, finite losses, step time, peak memory);
+     then at 2 + 2 layers the engine and ``--fused none`` from the same
+     seed, in turn: stats, params and momentum bitwise (digests).
+     Every line carries the card's name and power limit;
+ 27. one JSON line of kernel timings against their bounds (11 rows;
      flash attention's row is the bf16 gemma-2b prefill), then the JSON
      result line.
 
@@ -364,6 +389,7 @@ device spin before the start event, so the host's enqueue (logged as
     python3 chip_smoke.py --moe-only    # phases 1 and 23: DeepSeek-V2
     python3 chip_smoke.py --ssm-only    # phases 1 and 24: Mamba2
     python3 chip_smoke.py --hybrid-only # phases 1 and 25: jamba
+    python3 chip_smoke.py --whisper-only  # phases 1 and 26: Whisper
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -4878,6 +4904,309 @@ def phase_hybrid(torch, kernels, serve_mod, train_mod, serving, layers, ops, ref
             f"25e {t_e - t_d:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the Whisper encoder-decoder
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_SEED = 0                     # weights PRNGKey(0); frames PRNGKey(1 + seed)
+WHISPER_SERVE = (8, 32, 32)          # 26a: prompts, prompt length, new tokens
+WHISPER_CROSS_BYTES = 1_966_080_000  # 26a: 32 x 8 x 1500 x 20 x 64 x 2 (ck, cv) x 2 B
+WHISPER_TF_REL = 2e-3                # 26b: decode vs teacher forcing, fp32, of max
+WHISPER_CPU_REL = 1e-4               # 26c: the card vs the CPU, fp32, of max
+WHISPER_TRAIN_STEPS = 3              # 26d
+
+
+def whisper_frames(torch, cfg, B, seed, device):
+    """(B, encoder_len, d) fp32 frame embeddings drawn on ``device`` from
+    ``PRNGKey(1 + seed)`` (the weights take ``PRNGKey(seed)``)."""
+    from repro_torch import prng
+    return prng.normal(prng.PRNGKey(1 + seed), (B, cfg.encoder_len, cfg.d_model),
+                       device)
+
+
+def whisper_true_fan_in(params, cfg):
+    """Scale every stacked matmul weight (q, k, v, o, w1, w2), in place,
+    from the reference init's std to 1/sqrt(its true fan-in).  The
+    reference reads a stacked leaf's fan-in from its layer axis (32, or 2
+    at a 2-layer cut), so q, k and w1 are drawn 6.3x (25x) too wide and
+    the random 32 + 32-layer stack is chaotic: decode and a teacher-forced
+    prefill of the same tokens part by ~0.3 of max|logits| in fp32 (PR
+    35's first card run), as far as float rounding moves it."""
+    from repro_torch.models import model_defs
+    from repro_torch.models.param import _fan_in, flatten_defs
+    for name, d in flatten_defs(model_defs(cfg)).items():
+        if name.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "wo", "w1", "w2"):
+            one = d._replace(shape=d.shape[1:], axes=d.axes[1:])
+            params[name].mul_((_fan_in(d) / _fan_in(one)) ** 0.5)
+
+
+def phase_whisper_serve(torch, serve_mod, serving, cfg, rt, card):
+    """26a: full width and depth, bf16 matmul weights cast as drawn (the
+    serve launcher's ``load_model``), through ``greedy_generate`` twice
+    (tokens bitwise equal; the second call timed), beside a timed
+    prefill (encoder alone timed too) and decode loop whose tokens must
+    be greedy_generate's."""
+    from repro_torch.models.transformer import encode
+    B, S0, max_new = WHISPER_SERVE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, n_params = serve_mod.load_model(cfg, rt, seed=WHISPER_SEED)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    if n_params != 1_535_219_200:
+        raise AssertionError(f"26a: {n_params:,} params, want 1,535,219,200")
+    frames = whisper_frames(torch, cfg, B, WHISPER_SEED, rt.device)
+    prompt = torch.from_numpy(np.random.RandomState(WHISPER_SEED).randint(
+        0, cfg.vocab_size, (B, S0)).astype(np.int32)).to(rt.device)
+    toks = serving.greedy_generate(cfg, rt, params, prompt, max_new,
+                                   encoder_embeds=frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = serving.greedy_generate(cfg, rt, params, prompt, max_new,
+                                    encoder_embeds=frames)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    enc_ms = wall_ms(torch, lambda: encode(params, cfg, rt, frames), n=3)
+    prefill = serving.make_prefill_step(cfg, rt)
+    pre_ms = wall_ms(torch, lambda: prefill(params, prompt, frames), n=3)
+    logits, cache = prefill(params, prompt, frames)
+    cross = sum(v.numel() * v.element_size() for k, v in cache.items()
+                if k.rsplit(".", 1)[-1] in ("ck", "cv"))
+    cache = serving.pad_cache(cache, max_new)
+    step = serving.make_serve_step(cfg, rt)
+    tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+    out = [tok]
+    pos = torch.full((B,), S0, dtype=torch.int32, device=rt.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(max_new - 1):
+        tok, _, cache = step(params, cache, tok[:, None], pos)
+        out.append(tok)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (max_new - 1)
+    loop = torch.stack(out, dim=1)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{card}] 26a {cfg.name}: {n_params:,} params (32 + 32 layers) drawn "
+        f"on the card from PRNGKey({WHISPER_SEED}), matmul weights and MLP "
+        f"biases cast to {cfg.compute_dtype} as drawn, in {t_load:.2f} s; "
+        f"{resident:,} B resident; cross cache {cross:,} B (want "
+        f"{WHISPER_CROSS_BYTES:,})")
+    log(f"[{card}] 26a greedy_generate, {B} prompts of {S0} tokens, "
+        f"({B}, {cfg.encoder_len}, {cfg.d_model}) frames, {max_new} new "
+        f"tokens: {gen_ms:.1f} ms a call = {B * max_new / gen_ms * 1e3:.1f} "
+        f"tok/s; encoder {enc_ms:.2f} ms, prefill (encoder included) "
+        f"{pre_ms:.2f} ms, decode step {step_ms:.3f} ms "
+        f"({B * 1e3 / step_ms:.1f} tok/s in decode); peak device memory "
+        f"{peak:,} B; tokens of two calls bitwise equal: "
+        f"{torch.equal(toks, again)}; equal to the timed prefill + decode "
+        f"loop: {torch.equal(toks, loop)}")
+    if cross != WHISPER_CROSS_BYTES:
+        raise AssertionError(f"26a: cross cache {cross:,} B")
+    if toks.shape != (B, max_new) or not (torch.equal(toks, again)
+                                          and torch.equal(toks, loop)):
+        raise AssertionError("26a: greedy tokens differ between runs")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("26a: a token outside the vocabulary")
+    return {"enc_ms": enc_ms, "prefill_ms": pre_ms, "step_ms": step_ms,
+            "gen_ms": gen_ms, "peak": peak}
+
+
+def phase_whisper_teacher(torch, serve_mod, serving, cfg, rt, card, steps=4):
+    """26b: fp32 at full width and depth, B 2, the matmul weights at their
+    true fan-in (``whisper_true_fan_in``): a prompt of 24 tokens and
+    ``steps`` decode steps on the cross cache, each step's logits against
+    a prefill (with the frames) of the prefix it completes, within
+    ``WHISPER_TF_REL`` of its max |logit|; beside it, how far a one-ulp
+    scale of one weight leaf moves the prefill (a reading)."""
+    c = dataclasses.replace(cfg, compute_dtype="float32")
+    params, _ = serve_mod.load_model(c, rt, seed=WHISPER_SEED)
+    whisper_true_fan_in(params, c)
+    B, S = 2, 24
+    frames = whisper_frames(torch, c, B, WHISPER_SEED, rt.device)
+    toks = torch.from_numpy(np.random.RandomState(WHISPER_SEED + 1).randint(
+        0, c.vocab_size, (B, S + steps)).astype(np.int32)).to(rt.device)
+    prefill = serving.make_prefill_step(c, rt)
+    step = serving.make_serve_step(c, rt)
+    first, cache = prefill(params, toks[:, :S], frames)
+    cache = serving.pad_cache(cache, steps)
+    errs = []
+    for i in range(steps):
+        pos = torch.full((B,), S + i, dtype=torch.int32, device=rt.device)
+        _, got, cache = step(params, cache, toks[:, S + i:S + i + 1], pos)
+        ref = prefill(params, toks[:, :S + i + 1], frames)[0][:, -1]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("26b: decode logits are not finite")
+        errs.append(((got - ref).abs().max() / ref.abs().max()).item())
+    leaf = "blocks.L0.cross.wq"
+    nudged = dict(params, **{leaf: params[leaf] * (1 + 2**-23)})
+    moved = prefill(nudged, toks[:, :S], frames)[0]
+    ulp = ((moved - first).abs().max() / first.abs().max()).item()
+    log(f"[{card}] 26b (32 + 32 layers, fp32, true fan-in, B {B}, prompt "
+        f"{S}): decode on the cross cache vs a teacher-forced prefill, each "
+        f"step {', '.join(f'{e:.3g}' for e in errs)} of max|logits| (bound "
+        f"{WHISPER_TF_REL}); {leaf} scaled by 1 + 2^-23 moves the prefill's "
+        f"logits by {ulp:.3g}")
+    del params, cache, nudged
+    if max(errs) > WHISPER_TF_REL:
+        raise AssertionError(f"26b: decode differs from teacher forcing by "
+                             f"{max(errs):.3g}")
+    return errs
+
+
+def phase_whisper_cpu(torch, serve_mod, cfg, rt, card):
+    """26c: the port's fp32 ``forward`` at full width, 2 encoder + 2
+    decoder layers, on the card and on the CPU with the same weights (at
+    their true fan-in) and frames (drawn on the card, copied): the
+    prefill logits within ``WHISPER_CPU_REL`` of their max; the
+    train-mode hidden states a reading."""
+    from repro_torch.models import Runtime, forward
+    c = dataclasses.replace(cfg, n_layers=2, n_encoder_layers=2,
+                            compute_dtype="float32")
+    params, _ = serve_mod.load_model(c, rt, seed=WHISPER_SEED)
+    whisper_true_fan_in(params, c)
+    frames = whisper_frames(torch, c, 2, WHISPER_SEED, rt.device)
+    toks = torch.from_numpy(np.random.RandomState(WHISPER_SEED + 2).randint(
+        0, c.vocab_size, (2, 24)).astype(np.int32)).to(rt.device)
+    cpu = torch.device("cpu")
+    host = ({k: v.cpu() for k, v in params.items()}, toks.cpu(), frames.cpu())
+    outs = {}
+    t_cpu = time.perf_counter()
+    for where, (p, t, f), r in (("cpu", host, Runtime(cpu)),
+                                ("card", (params, toks, frames), rt)):
+        logits, _ = forward(p, c, r, t, mode="prefill", encoder_embeds=f)
+        h, _ = forward(p, c, r, t, mode="train", encoder_embeds=f)
+        outs[where] = (logits.cpu(), h.cpu())
+        if where == "cpu":
+            t_cpu = time.perf_counter() - t_cpu
+    (lc, hc), (lg, hg) = outs["cpu"], outs["card"]
+    err = ((lg - lc).abs().max() / lc.abs().max()).item()
+    err_h = ((hg - hc).abs().max() / hc.abs().max()).item()
+    log(f"[{card}] 26c (2 + 2 layers, fp32, B 2, prompt 24, the CPU's forward "
+        f"{t_cpu:.1f} s): the card against the CPU, prefill logits {err:.3g} "
+        f"of max (bound {WHISPER_CPU_REL}); train-mode hidden states "
+        f"{err_h:.3g} of max, a reading")
+    del params, host
+    if not (err <= WHISPER_CPU_REL):
+        raise AssertionError(f"26c: the card and the CPU differ by {err:.3g}")
+    return err, err_h
+
+
+def whisper_train_run(torch, kernels, train_mod, card, fused, n_layers, label):
+    """One SNGM run through the launcher's ``build``/``train`` (batch 8 x
+    128 in 2 micro-batches, remat, wd 1e-4, ``WHISPER_TRAIN_STEPS``
+    steps), at ``n_layers`` encoder and decoder layers (None: 32 + 32),
+    the launch counts set to 0 just before and read just after.  Returns
+    (step records, the final params' and momentum's digests)."""
+    from repro_torch.core.multi_tensor import FlatOptState
+    from repro_torch.core.optim import to_pytree
+    args = train_mod.parse_args(
+        ["--arch", WHISPER_ARCH, "--steps", str(WHISPER_TRAIN_STEPS), "--batch",
+         "8", "--seq", "128", "--n-micro", "2", "--weight-decay", "1e-4",
+         "--log-every", "1", "--device", "cuda", "--seed", str(WHISPER_SEED),
+         "--optimizer", "sngm", "--fused", fused])
+    cut = (lambda c: c) if n_layers is None else (
+        lambda c: dataclasses.replace(c, n_layers=n_layers,
+                                      n_encoder_layers=n_layers))
+    t0 = time.perf_counter()
+    with config_cut(train_mod, cut):
+        run = train_mod.build(args)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    buckets = ([str(b.dtype).removeprefix("torch.")
+                for b in run.state.opt_state.layout.buckets]
+               if isinstance(run.state.opt_state, FlatOptState) else None)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    state, mem = train_mod.train(args, run)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    recs = [m for _, m in mem.steps]
+    steady = [m["step_time_s"] for m in recs[1:]]
+    step_s = float(np.median(steady))
+    losses = ", ".join(f"{m['loss']:.4f}" for m in recs)
+    log(f"[{card}] 26d SNGM fused={fused}, {label}: {run.n_params:,} fp32 "
+        f"params, buckets {buckets}, built in {t_build:.1f} s; losses "
+        f"{losses}; step 0 "
+        f"{recs[0]['step_time_s']:.3f} s, then "
+        f"{', '.join(f'{s:.3f}' for s in steady)} s; median {step_s:.3f} s = "
+        f"{args.batch * args.seq / step_s:.0f} decoder tokens/s "
+        f"({args.batch * run.cfg.encoder_len / step_s:.0f} frames/s); peak "
+        f"device memory {peak:,} B; launches: chunk_sumsq "
+        f"{launches['chunk_sumsq']} in {args.steps} steps, fused_update "
+        f"{launches['fused_update']} in {args.steps} steps")
+    want = dict.fromkeys(launches, 0)
+    if fused == "multi_tensor":
+        want.update(chunk_sumsq=args.steps, fused_update=args.steps)
+        if buckets != ["float32"]:
+            raise AssertionError(f"26d: buckets {buckets}, want one fp32 bucket")
+    if launches != want:
+        raise AssertionError(f"26d {fused}: launches {launches}, want {want}")
+    if len(recs) != args.steps or not all(
+            np.isfinite(m[k]) for m in recs for k in ("loss", "grad_norm", "lr")):
+        raise AssertionError(f"26d {fused}: missing or non-finite stats")
+    final = {"params": state.params_view,
+             "momentum": to_pytree(state.opt_state).momentum}
+    digest = {what: state_digest(torch, leaves) for what, leaves in final.items()}
+    del run, state, mem, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs, digest, step_s, peak
+
+
+def phase_whisper_train(torch, kernels, train_mod, card):
+    """26d: full depth on the engine; then at 2 + 2 layers the engine and
+    ``--fused none`` from the same seed, in turn: every step's stats and
+    the final params and momentum bitwise (``state_digest``)."""
+    _, _, step_s, peak = whisper_train_run(torch, kernels, train_mod, card,
+                                           "multi_tensor", None, "32 + 32 layers")
+    runs = {f: whisper_train_run(torch, kernels, train_mod, card, f, 2,
+                                 "2 + 2 layers") for f in ("multi_tensor", "none")}
+    (ra, da, _, _), (rb, db, _, _) = runs["multi_tensor"], runs["none"]
+    keys = ("loss", "grad_norm", "lr")
+    same = {"stats": all(a[k] == b[k] for a, b in zip(ra, rb) for k in keys)}
+    same.update({what: da[what] == db[what] for what in da})
+    log(f"[{card}] 26d the engine vs --fused none from the same seed, run in "
+        f"turn, {WHISPER_TRAIN_STEPS} steps (2 + 2 layers): "
+        + ", ".join(f"{what} {'bitwise' if ok else 'NOT bitwise'}"
+                    for what, ok in same.items()))
+    if not all(same.values()):
+        raise AssertionError(f"26d: the engine and --fused none differ: {same}")
+    return step_s, peak
+
+
+def phase_whisper(torch, kernels, serve_mod, train_mod, serving, card):
+    """Phase 26, 26a-26d, each sub-phase's seconds logged, every line
+    printed led by the card's name and power limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import make_runtime
+    cfg = get_config(WHISPER_ARCH)
+    rt = make_runtime("cuda")
+    with contextlib.redirect_stdout(CardLines(sys.stdout, card)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_whisper_serve(torch, serve_mod, serving, cfg, rt, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_a = time.perf_counter()
+        phase_whisper_teacher(torch, serve_mod, serving, cfg, rt, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_b = time.perf_counter()
+        phase_whisper_cpu(torch, serve_mod, cfg, rt, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_c = time.perf_counter()
+        phase_whisper_train(torch, kernels, train_mod, card)
+        t_d = time.perf_counter()
+        log(f"[{card}] phase 26: {t_d - t0:.1f} s (26a {t_a - t0:.1f} s, 26b "
+            f"{t_b - t_a:.1f} s, 26c {t_c - t_b:.1f} s, 26d {t_d - t_c:.1f} s)")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="On-card smoke run of the port.")
@@ -4921,6 +5250,12 @@ def main(argv=None) -> int:
                          "paged, teacher forcing and the long-context variant, "
                          "the paged kernel at its decode shape, SNGM training "
                          "on the engine); prints no kernel rows")
+    ap.add_argument("--whisper-only", action="store_true",
+                    help="phases 1 and 26 only (the Whisper encoder-decoder "
+                         "at full width and depth: greedy_generate on the "
+                         "dense cache, teacher forcing, the card against the "
+                         "CPU, SNGM training on the engine); prints no "
+                         "kernel rows")
     ap.add_argument("--ema-only", action="store_true",
                     help="phases 1 and 21 only (EMA shadow parameters on the "
                          "engine at full width, against the interpreter and "
@@ -4959,7 +5294,8 @@ def main(argv=None) -> int:
     lars = SimpleNamespace(ops=lars_ops, ref=lars_ref)
     t_start = time.perf_counter()
     libs = {"paged_attention": [ops.SOURCE]}
-    if args.convnet_only or args.ema_only or args.moe_only or args.ssm_only:
+    if (args.convnet_only or args.ema_only or args.moe_only or args.ssm_only
+            or args.whisper_only):
         libs = {mt_ops.LIB_NAME: [mt_ops.SOURCE]}
     elif args.chains_only or args.ckpt_only or args.data_only or args.hybrid_only:
         libs[mt_ops.LIB_NAME] = [mt_ops.SOURCE]
@@ -4999,6 +5335,8 @@ def main(argv=None) -> int:
     elif args.hybrid_only:
         phase_hybrid(torch, kernels, serve_mod, train_mod, serving, layers, ops,
                      ref, card)
+    elif args.whisper_only:
+        phase_whisper(torch, kernels, serve_mod, train_mod, serving, card)
     elif not args.ops_only:
         err = phase_kernel(torch, ops, ref)
         rt = make_runtime("cuda")
@@ -5054,12 +5392,13 @@ def main(argv=None) -> int:
         phase_ssm(torch, kernels, serve_mod, train_mod, serving, card)
         phase_hybrid(torch, kernels, serve_mod, train_mod, serving, layers, ops,
                      ref, card)
+        phase_whisper(torch, kernels, serve_mod, train_mod, serving, card)
         t_train = time.perf_counter()
 
     if not (args.paged_only or args.chains_only or args.ckpt_only
             or args.data_only or args.convnet_only or args.ema_only
             or args.dense_only or args.moe_only or args.ssm_only
-            or args.hybrid_only):
+            or args.hybrid_only or args.whisper_only):
         phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
         cases = ops_cases(torch)
         outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)

@@ -18,6 +18,11 @@ It adds:
     JAX launcher always serves the smoke variant; this one serves the
     full published widths unless ``--reduced`` is given.
 
+Both engines are decoder-only, as the JAX package's are (its launcher
+fails on Whisper on both): an encoder-decoder is refused before any
+weight is drawn, and serves through ``serving.engine.greedy_generate``
+with its frame embeddings (ROADMAP.md Queue C).
+
 Weights are random, ``materialize(defs, PRNGKey(--seed))`` drawn as the
 JAX package draws them (no checkpoint is loaded); the JAX launcher
 always draws them from ``PRNGKey(0)``.
@@ -45,7 +50,7 @@ from repro_torch.models.runtime import Runtime
 from repro_torch.serving.engine import (cache_batch_axes, make_prefill_step,
                                         make_serve_step, pad_cache,
                                         sample_logits)
-from repro_torch.serving.paged_cache import n_blocks_for
+from repro_torch.serving.paged_cache import check_decoder_only, n_blocks_for
 from repro_torch.serving.scheduler import PagedScheduler, ServeRequest
 
 
@@ -121,6 +126,7 @@ class ContinuousBatcher:
     def __init__(self, cfg: ModelConfig, params, n_slots: int, ctx_len: int,
                  *, rt: Runtime, temperature: float = 0.0, top_k: int = 0,
                  seed: int = 0):
+        check_decoder_only(cfg)
         self.params = params
         self.n, self.ctx = n_slots, ctx_len
         self.device = rt.device
@@ -265,6 +271,12 @@ def main(argv: Optional[Sequence[str]] = None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = smoke_variant(cfg)
+    if cfg.is_encoder_decoder:
+        raise SystemExit(
+            f"[serve] {cfg.name}: both engines are decoder-only, as in the "
+            f"JAX package; an encoder-decoder serves through "
+            f"serving.engine.greedy_generate(..., encoder_embeds=) "
+            f"(ROADMAP.md Queue C)")
     params, n_params = load_model(cfg, rt, args.seed)
     print(f"[serve] {cfg.name}: {n_params:,} params on {rt.device}")
     ctx = args.prompt_len + args.max_new

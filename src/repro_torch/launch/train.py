@@ -31,7 +31,12 @@ after a blocking device-to-host copy.
 
 Data: by default ``SyntheticLM.batch_at(t)``, which depends on ``t``
 and ``--seed`` alone, so a resumed run reads the batches of the
-uninterrupted one (give it the same ``--seed``).  ``--data-dir`` trains
+uninterrupted one (give it the same ``--seed``).  An encoder-decoder's
+batches add (B, encoder_len, d_model) fp32 frame embeddings drawn from
+``PRNGKey(t)`` (``EncoderFrames``: the JAX launcher's draw, keyed by the
+step alone and not by ``--seed``); a ``--data-dir`` pack must carry an
+``encoder_embeds`` field for it, which the loader passes through.
+``--data-dir`` trains
 from an on-disk ``repro-data-pack`` (``python -m repro_torch.data.pack``)
 through the ``StreamingLoader`` (seeded by ``--seed``; at 0 it is the
 JAX launcher's stream) with ``--prefetch``-deep host-to-device prefetch
@@ -240,16 +245,23 @@ class PackStream:
     ``--seed``), read during each ``train`` call through a
     ``--prefetch``-deep ``PrefetchIterator`` that stages every batch on
     the run's device, or placed on the training thread with
-    ``--prefetch 0``.  ``state`` is the cursor of the next batch training
+    ``--prefetch 0``.  ``need``: fields the pack must carry (an
+    encoder-decoder's ``encoder_embeds``).  ``state`` is the cursor of
+    the next batch training
     consumes, whatever the worker has read ahead; after a ``train`` call
     the loader is left at that cursor."""
 
-    def __init__(self, args, cfg, device: torch.device):
+    def __init__(self, args, cfg, device: torch.device,
+                 need: Sequence[str] = ()):
         source = DiskShardedSource(args.data_dir)
         v = source.meta.get("vocab_size")
         if v is not None and v != cfg.vocab_size:
             raise SystemExit(f"--data-dir vocab_size {v} != model vocab "
                              f"{cfg.vocab_size} ({cfg.name})")
+        for field in need:
+            if field not in source.fields:
+                raise SystemExit(f"--data-dir: {cfg.name} needs a {field!r} "
+                                 f"field in the dataset")
         self.seq = int(source.meta.get("seq_len", args.seq))
         self.loader = StreamingLoader(source, args.batch, seed=args.seed)
         self.depth = args.prefetch
@@ -288,16 +300,34 @@ class PackStream:
         self.loader.close()
 
 
+class EncoderFrames:
+    """An encoder-decoder's synthetic batches: ``SyntheticLM``'s, each with
+    (B, encoder_len, d_model) fp32 frame embeddings
+    ``normal(PRNGKey(t), ...)`` on the run's device: the JAX launcher's
+    ``jax.random.normal`` draw (keyed by the step alone) within
+    ``prng.NORMAL_ULP`` ulps."""
+
+    def __init__(self, lm: SyntheticLM, cfg, batch: int, device: torch.device):
+        self.lm, self.device = lm, device
+        self.shape = (batch, cfg.encoder_len, cfg.d_model)
+
+    def batch_at(self, t: int):
+        b = self.lm.batch_at(t)
+        b["encoder_embeds"] = prng.normal(prng.PRNGKey(t), self.shape,
+                                          self.device)
+        return b
+
+
 @dataclasses.dataclass
 class Run:
     """What ``build`` sets up: the step function, the state, the data
-    (``SyntheticLM``, read by ``batch_at``, or a ``PackStream``) and the
-    sequence length its batches have."""
+    (``SyntheticLM`` or ``EncoderFrames``, read by ``batch_at``, or a
+    ``PackStream``) and the sequence length its batches have."""
     cfg: Any
     opt: Any
     state: TrainState
     step: Any
-    data: Union[SyntheticLM, PackStream]
+    data: Union[SyntheticLM, EncoderFrames, PackStream]
     n_params: int
     seq: int
 
@@ -316,11 +346,14 @@ def build(args, spec: Optional[OptimizerSpec] = None) -> Run:
         cfg = smoke_variant(cfg)
     rt = make_runtime(args.device, remat=not args.reduced)
     if args.data_dir:
-        data = PackStream(args, cfg, rt.device)
+        data = PackStream(args, cfg, rt.device, need=(
+            ("encoder_embeds",) if cfg.is_encoder_decoder else ()))
         seq = data.seq
     else:
         data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed,
                            branching=4, device=rt.device)
+        if cfg.is_encoder_decoder:
+            data = EncoderFrames(data, cfg, args.batch, rt.device)
         seq = args.seq
     defs = model_defs(cfg)
     params = materialize(defs, prng.PRNGKey(args.seed), rt.device)

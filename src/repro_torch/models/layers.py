@@ -1,9 +1,12 @@
-"""Core layers of the decoder: RMSNorm, RoPE, softcap, the gated MLP,
-GQA attention and DeepSeek-V2's multi-head latent attention (MLA), each
-with its full-sequence, dense (ring-buffer) and paged decode modes.
+"""Core layers: RMSNorm and LayerNorm, RoPE, softcap, the gated MLP and
+Whisper's ungated one, GQA attention and DeepSeek-V2's multi-head
+latent attention (MLA), each attention with its full-sequence, dense
+(ring-buffer) and paged decode modes.
 
-A port of ``repro.models.layers`` for the decoder-only archs (dense
-GQA, sliding window, softcaps, QK-norm, MLA).  Parameters of
+A port of ``repro.models.layers`` (dense GQA, sliding window, softcaps,
+QK-norm, MLA, and Whisper's LayerNorm, biased MLP and cross-attention
+projections; the cross-attention itself is assembled in
+``models.transformer``, as in the JAX package).  Parameters of
 one block arrive as a flat dict keyed by the leaf name under the block
 ("wq", "scale", ...).  Numerics follow the JAX package: fp32 norms,
 RoPE and softmax, matmuls in the compute dtype; each function says
@@ -38,6 +41,39 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
     return out.to(x.dtype)
 
 
+def layernorm_defs(dim: int):
+    return {"scale": ParamDef((dim,), ("norm",), "ones"),
+            "bias": ParamDef((dim,), ("norm",), "zeros")}
+
+
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps: float = 1e-5):
+    """The JAX package's formula in fp32, population variance, eps fixed
+    at 1e-5 (``cfg.norm_eps`` is not read there either).  Not
+    ``F.layer_norm``, which may sum in another order."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def norm_defs(cfg: ModelConfig):
+    """LayerNorm for Whisper (a GELU encoder-decoder), RMSNorm otherwise."""
+    return (layernorm_defs(cfg.d_model)
+            if cfg.act == "gelu" and cfg.is_encoder_decoder
+            else rmsnorm_defs(cfg.d_model))
+
+
+def apply_norm(cfg: ModelConfig, p, x):
+    """``p`` is the norm's subtree, {"scale"} or {"scale", "bias"}: a
+    bias makes it a LayerNorm."""
+    if "bias" in p:
+        return layernorm(p["scale"], p["bias"], x)
+    return rmsnorm(p["scale"], x, cfg.norm_eps)
+
+
 def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding, llama split-half convention, in fp32.
 
@@ -60,14 +96,19 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# gated MLP (SwiGLU / GeGLU)
+# MLP (gated SwiGLU / GeGLU and Whisper's ungated one)
 # ---------------------------------------------------------------------------
 
-def mlp_defs(cfg: ModelConfig, d_ff: int):
+def mlp_defs(cfg: ModelConfig, d_ff: int, gated: bool = True):
     d = cfg.d_model
-    return {"wg": ParamDef((d, d_ff), ("embed", "ffn")),
-            "wu": ParamDef((d, d_ff), ("embed", "ffn")),
-            "wd": ParamDef((d_ff, d), ("ffn", "embed"))}
+    if gated:
+        return {"wg": ParamDef((d, d_ff), ("embed", "ffn")),
+                "wu": ParamDef((d, d_ff), ("embed", "ffn")),
+                "wd": ParamDef((d_ff, d), ("ffn", "embed"))}
+    return {"w1": ParamDef((d, d_ff), ("embed", "ffn")),
+            "b1": ParamDef((d_ff,), ("ffn",), "zeros"),
+            "w2": ParamDef((d_ff, d), ("ffn", "embed")),
+            "b2": ParamDef((d,), ("norm",), "zeros")}
 
 
 def _act(cfg: ModelConfig, x):
@@ -78,18 +119,23 @@ def _act(cfg: ModelConfig, x):
 def mlp(p, x, cfg: ModelConfig):
     cdt = getattr(torch, cfg.compute_dtype)
     xc = x.to(cdt)
-    h = _act(cfg, xc @ p["wg"].to(cdt)) * (xc @ p["wu"].to(cdt))
-    return h @ p["wd"].to(cdt)
+    if "wg" in p:
+        h = _act(cfg, xc @ p["wg"].to(cdt)) * (xc @ p["wu"].to(cdt))
+        return h @ p["wd"].to(cdt)
+    h = _act(cfg, xc @ p["w1"].to(cdt) + p["b1"].to(cdt))
+    return h @ p["w2"].to(cdt) + p["b2"].to(cdt)
 
 
 # ---------------------------------------------------------------------------
 # GQA attention
 # ---------------------------------------------------------------------------
 
-def attention_defs(cfg: ModelConfig):
+def attention_defs(cfg: ModelConfig, cross: bool = False):
+    """A cross-attention's projections are GQA's, never MLA's, and carry
+    no QK-norm."""
     d, H, K = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
-    if cfg.mla is not None:
+    if cfg.mla is not None and not cross:
         m = cfg.mla
         qk_hd = m.qk_nope_dim + m.qk_rope_dim
         defs = {
@@ -116,7 +162,7 @@ def attention_defs(cfg: ModelConfig):
         "wv": ParamDef((d, K, hd), ("embed", "kv_heads", "head_dim")),
         "wo": ParamDef((H, hd, d), ("heads", "head_dim", "embed")),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         defs["qn"] = ParamDef((hd,), ("norm",), "ones")
         defs["kn"] = ParamDef((hd,), ("norm",), "ones")
     return defs

@@ -10,7 +10,10 @@ Dense cache layout (per attention layer, stacked over periods as the
 prefill returns it): k/v (n_periods, B, S, K, hd) + slot_pos
 (n_periods, B, S), an MLA layer's latents ckv (n_periods, B, S, r) and
 krope (n_periods, B, S, rr) in place of k/v, a prefix layer's without
-the period dim; a windowed layer keeps a ring of its last W
+the period dim, and a Whisper decoder layer's cross-attention K/V of the
+encoder output, ck/cv (n_periods, B, encoder_len, K, hd), written once
+by the prefill (``pad_cache`` leaves them as they are); a windowed layer
+keeps a ring of its last W
 positions (slot = pos % W) once the prompt passes the window, so its
 decode state is O(W).  ``cache_abstract`` gives the shapes of a ready
 cache by a prefill on the ``meta`` device (the counterpart of
@@ -32,11 +35,12 @@ NEG_INF = -2.0e38
 
 
 def make_prefill_step(cfg: ModelConfig, rt: Runtime):
-    """``last_pos`` (B,), optional: per-row prompt-end position for
-    bucket-padded batched prefill (see transformer.forward)."""
-    def prefill(params, tokens, last_pos=None):
+    """``encoder_embeds`` (B, encoder_len, d), an encoder-decoder's frame
+    embeddings; ``last_pos`` (B,), optional: per-row prompt-end position
+    for bucket-padded batched prefill (see transformer.forward)."""
+    def prefill(params, tokens, encoder_embeds=None, last_pos=None):
         return forward(params, cfg, rt, tokens, mode="prefill",
-                       last_pos=last_pos)
+                       last_pos=last_pos, encoder_embeds=encoder_embeds)
     return prefill
 
 
@@ -80,12 +84,16 @@ META = torch.device("meta")
 def cache_abstract(cfg: ModelConfig, B: int, S: int) -> Dict[str, torch.Tensor]:
     """The flat prefill cache of B sequences of length S as ``meta``
     tensors (shape and dtype, no storage): a prefill of ``model_defs``
-    on the meta device, which allocates nothing and draws no weights."""
+    on the meta device, which allocates nothing and draws no weights;
+    an encoder-decoder's with (B, encoder_len, d) fp32 frame embeddings,
+    as the JAX package's."""
     params = {k: torch.empty(d.shape, dtype=d.dtype, device=META)
               for k, d in flatten_defs(model_defs(cfg)).items()}
     tokens = torch.empty((B, S), dtype=torch.int32, device=META)
+    enc = (torch.empty((B, cfg.encoder_len, cfg.d_model), dtype=torch.float32,
+                       device=META) if cfg.is_encoder_decoder else None)
     _, cache = forward(params, cfg, Runtime(device=META), tokens,
-                       mode="prefill")
+                       mode="prefill", encoder_embeds=enc)
     return cache
 
 
@@ -105,7 +113,8 @@ def cache_batch_axes(cfg: ModelConfig, S: int = 4) -> Dict[str, int]:
 
 # sequence axis counted from the end: leaves may lead with the stacked
 # period dim; k/v (..., S, K, hd), MLA's ckv/krope (..., S, r), slot_pos
-# (..., S)
+# (..., S).  The cross cache (ck/cv, the encoder's length) and Mamba's
+# fixed-size state are not grown.
 SEQ_AXIS_FROM_END = {"k": 3, "v": 3, "ckv": 2, "krope": 2, "slot_pos": 1}
 
 
@@ -135,12 +144,14 @@ def pad_cache(cache: Dict[str, torch.Tensor], extra: int) -> Dict[str, torch.Ten
 
 
 def greedy_generate(cfg: ModelConfig, rt: Runtime, params, prompt,
-                    max_new: int) -> torch.Tensor:
+                    max_new: int, encoder_embeds=None) -> torch.Tensor:
     """Batched greedy decoding on the dense cache: prompt (B, S0) int32
     on ``rt.device`` -> (B, max_new) int32.  The prompt must fit every
-    window (``pad_cache`` raises on a rotated ring)."""
+    window (``pad_cache`` raises on a rotated ring).  An encoder-decoder
+    takes its (B, encoder_len, d) ``encoder_embeds``: the prefill encodes
+    them once and caches each layer's cross K/V."""
     B, S0 = prompt.shape
-    logits, cache = make_prefill_step(cfg, rt)(params, prompt)
+    logits, cache = make_prefill_step(cfg, rt)(params, prompt, encoder_embeds)
     cache = pad_cache(cache, max_new)
     step = make_serve_step(cfg, rt)
     tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)

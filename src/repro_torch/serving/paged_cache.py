@@ -1,6 +1,8 @@
 """Paged KV cache: a global block pool + per-sequence block tables.
 
-A port of ``repro.serving.paged_cache`` for the decoder-only stacks.
+A port of ``repro.serving.paged_cache`` for the decoder-only stacks
+(``check_decoder_only``: an encoder-decoder is refused, as the JAX
+package asserts; it serves through ``engine.greedy_generate``).
 Each attention layer's cache is a pool of fixed-size blocks plus an
 int32 block table per slot, kept in a flat dict stacked over periods:
 
@@ -43,7 +45,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, layer_pattern
 from repro_torch.models.mamba import state_shapes
-from repro_torch.models.transformer import check_supported, mixer_name
+from repro_torch.models.transformer import mixer_name
 
 # pool leaf -> (dense prefill leaf, number of trailing dims after (B, S))
 POOL_LEAVES = {"kp": ("k", 2), "vp": ("v", 2),
@@ -167,6 +169,17 @@ class BlockAllocator:
 # paged cache construction & manipulation
 # ---------------------------------------------------------------------------
 
+def check_decoder_only(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for an encoder-decoder (Whisper): both serving
+    engines, paged and the dense batcher, are decoder-only in the JAX
+    package too (ROADMAP.md Queue C)."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name}: the serving engines are decoder-only, "
+                         f"as in the JAX package (an encoder-decoder serves "
+                         f"through serving.engine.greedy_generate; ROADMAP.md "
+                         f"Queue C)")
+
+
 def paged_cache_init(cfg: ModelConfig, n_slots: int, block_size: int,
                      n_blocks: int, nbmax: int,
                      device: torch.device) -> Dict[str, torch.Tensor]:
@@ -174,7 +187,7 @@ def paged_cache_init(cfg: ModelConfig, n_slots: int, block_size: int,
     layer, prefix and period, in the compute dtype that prefill writes,
     and zero per-slot state for every Mamba2 layer (see module
     docstring)."""
-    check_supported(cfg)
+    check_decoder_only(cfg)
     prefix, period, n_periods = layer_pattern(cfg)
     if cfg.mla is not None:
         tails = {"ckvp": (cfg.mla.kv_lora_rank,), "kropep": (cfg.mla.qk_rope_dim,)}

@@ -44,8 +44,9 @@ from repro_torch.models.runtime import Runtime
 from repro_torch.serving.engine import (make_prefill_step, make_serve_step,
                                         sample_logits)
 from repro_torch.serving.paged_cache import (BlockAllocator, PoolExhausted,
-                                             n_blocks_for, paged_cache_init,
-                                             set_block_table, splice_prefill)
+                                             check_decoder_only, n_blocks_for,
+                                             paged_cache_init, set_block_table,
+                                             splice_prefill)
 
 
 @dataclass
@@ -87,6 +88,7 @@ class PagedScheduler:
                  n_slots: int, block_size: int, n_blocks: int, ctx_max: int,
                  decode_chunk: int = 4, buckets: Optional[Sequence[int]] = None,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0):
+        check_decoder_only(cfg)
         if cfg.window and ctx_max > cfg.window:
             raise ValueError("paged serving keeps windowed caches unrotated "
                              f"(ctx_max {ctx_max} > window {cfg.window})")

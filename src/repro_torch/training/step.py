@@ -36,7 +36,10 @@ from repro_torch.training.loss import lm_loss
 
 
 def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig, rt: Runtime):
-    h, aux = forward(params, cfg, rt, batch["tokens"], mode="train")
+    """``batch``: tokens, loss_mask and, for an encoder-decoder,
+    encoder_embeds (B, encoder_len, d)."""
+    h, aux = forward(params, cfg, rt, batch["tokens"], mode="train",
+                     encoder_embeds=batch.get("encoder_embeds"))
     loss, ntok = lm_loss(h, unembed_matrix(params), batch["tokens"],
                          batch["loss_mask"], cfg)
     return loss + aux, {"ce_loss": loss, "aux_loss": aux, "ntok": ntok}
@@ -88,7 +91,9 @@ def make_train_step(cfg: ModelConfig, rt: Runtime, opt: Optimizer,
     (``core.transform.as_optimizer``).
 
     batch["tokens"]: (B, S) global batch, accumulated over ``n_micro``
-    micro-batches of B / n_micro rows.  Stats stay 0-dim tensors on the
+    micro-batches of B / n_micro rows; every other leaf of the batch
+    (loss_mask, an encoder-decoder's encoder_embeds) is split alike.
+    Stats stay 0-dim tensors on the
     device (no host sync inside the step)."""
     opt = as_optimizer(opt)
 

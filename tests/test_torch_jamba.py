@@ -372,7 +372,7 @@ def test_forward_block_by_block_matches_jax_in_bf16():
                 jcin = tcin = None
                 if mode == "decode":
                     jcin = {mix: jax.tree.map(jnp.asarray, caches[i, j])}
-                    tcin = {n: torch.from_numpy(_np32(v)).to(
+                    tcin = {f"{mix}.{n}": torch.from_numpy(_np32(v)).to(
                         torch.int32 if n == "slot_pos" else
                         torch.float32 if n == "ssm" else torch.bfloat16)
                         for n, v in caches[i, j].items()}
@@ -387,10 +387,11 @@ def test_forward_block_by_block_matches_jax_in_bf16():
                     abs(float(jaux)), 1e-30), what
                 if mode != "train":
                     for n, ref in jcout[mix].items():
+                        got = tcout[f"{mix}.{n}"]
                         if n == "slot_pos":
-                            assert np.array_equal(np.asarray(ref), tcout[n].numpy()), what
+                            assert np.array_equal(np.asarray(ref), got.numpy()), what
                         else:
-                            assert _rel(ref, tcout[n]) <= rel, (what, n)
+                            assert _rel(ref, got) <= rel, (what, n)
                 if mode == "prefill":
                     caches[i, j] = {n: np.asarray(v) for n, v in
                                     (jeng.pad_cache(jcout, 1)[mix]).items()}

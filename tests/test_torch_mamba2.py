@@ -163,35 +163,35 @@ def test_full_width_defs_and_counts_match_jax():
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "whisper-large-v3"])
 def test_hybrid_and_encoder_decoder_still_raise(arch):
-    """The encoder-decoder still raises.  The jamba hybrid is ported
-    since (``tests/test_torch_jamba.py``): its tree is the JAX package's
-    path for path, and its paged cache (pools and tables for the
+    """Both are ported since (``tests/test_torch_jamba.py``,
+    ``tests/test_torch_whisper.py``): each tree is the JAX package's path
+    for path.  The jamba hybrid's paged cache (pools and tables for the
     attention layer, per-slot conv and SSM state for the Mamba layers)
-    has the JAX package's leaves, shapes and dtypes."""
+    has the JAX package's leaves, shapes and dtypes; the encoder-decoder's
+    is refused, as the JAX package asserts "paged serving is
+    decoder-only"."""
     cfg = tcfg.ARCHS[arch]
-    if not cfg.is_encoder_decoder:
-        jflat = {".".join(str(k.key) for k in path): d for path, d in
-                 jax.tree_util.tree_flatten_with_path(
-                     jax_model_defs(jcfg.ARCHS[arch]), is_leaf=is_def)[0]}
-        tflat = flatten_defs(model_defs(cfg))
-        assert sorted(jflat) == sorted(tflat)
-        for k, d in jflat.items():
-            assert (d.shape, np.dtype(d.dtype).name) == (
-                tflat[k].shape, str(tflat[k].dtype).removeprefix("torch.")), k
-        from repro.serving import paged_cache as jpc
-        want = _flat(jax.tree.map(np.asarray, jpc.paged_cache_init(
-            jcfg.smoke_variant(jcfg.ARCHS[arch]), 2, 4, 4, 2)))
-        got = tpc.paged_cache_init(tcfg.smoke_variant(cfg), 2, 4, 4, 2, CPU)
-        assert sorted(got) == sorted(want)
-        assert {k.rsplit(".", 1)[-1] for k in got} == {"kp", "vp", "bt", "conv", "ssm"}
-        for k, a in want.items():
-            assert tuple(got[k].shape) == a.shape, k
-            assert str(got[k].dtype).removeprefix("torch.") == a.dtype.name, k
+    jflat = {".".join(str(k.key) for k in path): d for path, d in
+             jax.tree_util.tree_flatten_with_path(
+                 jax_model_defs(jcfg.ARCHS[arch]), is_leaf=is_def)[0]}
+    tflat = flatten_defs(model_defs(cfg))
+    assert sorted(jflat) == sorted(tflat)
+    for k, d in jflat.items():
+        assert (d.shape, np.dtype(d.dtype).name) == (
+            tflat[k].shape, str(tflat[k].dtype).removeprefix("torch.")), k
+    if cfg.is_encoder_decoder:
+        with pytest.raises(ValueError, match="decoder-only.*ROADMAP"):
+            tpc.paged_cache_init(tcfg.smoke_variant(cfg), 2, 4, 4, 2, CPU)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_defs(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpc.paged_cache_init(tcfg.smoke_variant(cfg), 2, 4, 4, 2, CPU)
+    from repro.serving import paged_cache as jpc
+    want = _flat(jax.tree.map(np.asarray, jpc.paged_cache_init(
+        jcfg.smoke_variant(jcfg.ARCHS[arch]), 2, 4, 4, 2)))
+    got = tpc.paged_cache_init(tcfg.smoke_variant(cfg), 2, 4, 4, 2, CPU)
+    assert sorted(got) == sorted(want)
+    assert {k.rsplit(".", 1)[-1] for k in got} == {"kp", "vp", "bt", "conv", "ssm"}
+    for k, a in want.items():
+        assert tuple(got[k].shape) == a.shape, k
+        assert str(got[k].dtype).removeprefix("torch.") == a.dtype.name, k
 
 
 def test_load_model_casts_each_leaf_as_cast_for_compute_does():

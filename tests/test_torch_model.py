@@ -118,29 +118,31 @@ def test_model_defs_match_jax(arch):
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_model_defs_raise_for_unported_stacks(arch):
-    if tcfg.ARCHS[arch].mla is not None or tcfg.ARCHS[arch].ssm is not None:
-        # ported since (MLA and MoE, the DeepSeek-V2 stacks; the pure
-        # Mamba2 stack; the jamba hybrid): the tree is the JAX package's,
-        # path for path, with its shapes and dtypes
-        jd = jax_model_defs(jcfg.ARCHS[arch])
-        flat = jax.tree_util.tree_flatten_with_path(jd, is_leaf=is_def)[0]
-        jflat = {".".join(str(k.key) for k in path): d for path, d in flat}
-        tflat = flatten_defs(model_defs(tcfg.ARCHS[arch]))
-        assert sorted(jflat) == sorted(tflat)
-        for k, d in jflat.items():
-            e = tflat[k]
-            assert d.shape == e.shape, k
-            assert np.dtype(d.dtype).name == str(e.dtype).removeprefix("torch."), k
-        if tcfg.ARCHS[arch].is_pure_ssm:
-            assert len(tflat) == 15 and count(model_defs(tcfg.ARCHS[arch])) \
-                == 1_343_740_928
-        elif tcfg.ARCHS[arch].ssm is not None:     # jamba: every leaf bf16
-            assert len(tflat) == 135 and count(model_defs(tcfg.ARCHS[arch])) \
-                == 397_711_939_584
-            assert {e.dtype for e in tflat.values()} == {torch.bfloat16}
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_defs(tcfg.ARCHS[arch])
+    """Every stack once refused here is ported since (MLA and MoE, the
+    DeepSeek-V2 stacks; the pure Mamba2 stack; the jamba hybrid; the
+    Whisper encoder-decoder): the tree is the JAX package's, path for
+    path, with its shapes and dtypes."""
+    jd = jax_model_defs(jcfg.ARCHS[arch])
+    flat = jax.tree_util.tree_flatten_with_path(jd, is_leaf=is_def)[0]
+    jflat = {".".join(str(k.key) for k in path): d for path, d in flat}
+    tflat = flatten_defs(model_defs(tcfg.ARCHS[arch]))
+    assert sorted(jflat) == sorted(tflat)
+    for k, d in jflat.items():
+        e = tflat[k]
+        assert d.shape == e.shape, k
+        assert np.dtype(d.dtype).name == str(e.dtype).removeprefix("torch."), k
+    if tcfg.ARCHS[arch].is_pure_ssm:
+        assert len(tflat) == 15 and count(model_defs(tcfg.ARCHS[arch])) \
+            == 1_343_740_928
+    elif tcfg.ARCHS[arch].ssm is not None:     # jamba: every leaf bf16
+        assert len(tflat) == 135 and count(model_defs(tcfg.ARCHS[arch])) \
+            == 397_711_939_584
+        assert {e.dtype for e in tflat.values()} == {torch.bfloat16}
+    elif tcfg.ARCHS[arch].is_encoder_decoder:  # whisper: encoder + cross
+        assert len(tflat) == 35 and count(model_defs(tcfg.ARCHS[arch])) \
+            == 1_535_219_200
+        assert "encoder.blocks.L0.attn.wq" in tflat
+        assert "blocks.L0.cross.wq" in tflat
 
 
 def test_materialize_is_seeded_and_follows_the_jax_scales():
