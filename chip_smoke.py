@@ -25,7 +25,9 @@ with SNGM on the engine; and the Mamba2 (SSD) family, a pure SSM stack:
 mamba2-1.3b served at full width on both engines and trained with SNGM
 on the engine; and the jamba hybrid; and the Whisper encoder-decoder,
 whisper-large-v3 served through ``greedy_generate`` at full width and
-depth and trained with SNGM on the engine.  Holds every kernel (11 rows: the deferred apply has its own) against
+depth and trained with SNGM on the engine; and the reference's precision
+and remat switches (bf16-in, f32-out score and logits products with
+JAX's backward, the loss's bf16 weight cast, sqrt-remat grouping).  Holds every kernel (11 rows: the deferred apply has its own) against
 its plain PyTorch version.
 
     python3 chip_smoke.py
@@ -370,7 +372,39 @@ Phases, each raising on failure:
      then at 2 + 2 layers the engine and ``--fused none`` from the same
      seed, in turn: stats, params and momentum bitwise (digests).
      Every line carries the card's name and power limit;
- 27. one JSON line of kernel timings against their bounds (11 rows;
+ 27. the reference's precision and remat switches (run after phase 26;
+     no kernel of their own: the reference's bf16-in, f32-out products
+     are plain ``dot_general``s, so ``bf16_dot`` runs library GEMMs on the
+     tensor cores): (a) ``bf16_dot`` against its plain form
+     (``bf16_dot_ref``) on the same inputs at gemma-2b's logits chunk
+     (2048 x 2048 @ 2048 x 256000) and its and whisper's score shapes:
+     forward within 1e-5 of max, both cotangents within one bf16 step of
+     the value plus 1e-5 of max; the forward product and the backward's
+     cotangent products timed beside the plain form's and the bf16
+     bound; (c) full-width gemma-2b (18 periods), one micro-batch of
+     ``loss_fn`` and backward with remat, per-block (``_remat_group``
+     forced to 1), grouped, grouped, per-block in turn: the grouped
+     gradients bitwise the per-block ones (or within twice the two
+     per-block runs' difference), each run's time and peak; (d) a
+     full-width prefill of 2 prompts of 480 and 4 teacher-forced dense
+     decode steps at fp32 compute with ``sdpa_bf16``, the card's path
+     against the plain form and beside a one-ulp nudge of one weight leaf,
+     at the reference init (chaotic: a reading) and with the matmul
+     weights at their true fan-in (``true_fan_in``), there within
+     ``LOGIT_REL["float32"]``; (b) phase 9's
+     SNGM engine run (4 steps) with ``logits_bf16``, ``sdpa_bf16`` and
+     ``gather_dtype="bfloat16"`` all off and all on (``config_cut`` and a
+     ``make_runtime`` patch: the launcher has no flag for them), one run
+     each: 1 ``chunk_sumsq`` + 1 ``fused_update`` a step, finite stats,
+     the step-0 loss and ||g|| on within 5e-2 relative of off, step time,
+     tokens/s, peak memory.  ``--precision-only`` runs 27b six times in
+     turn (per-block off, off, on, on, off, per-block off; per-block is
+     remat without groups), profiles the first run of each kind (its GEMM
+     device time by input dtype), and adds to 27c a reading of the
+     gradient norm with each switch, with ``sdpa_bf16`` on its plain
+     form, and with one weight leaf nudged by an ulp.  Every line carries
+     the card's name and power limit;
+ 28. one JSON line of kernel timings against their bounds (11 rows;
      flash attention's row is the bf16 gemma-2b prefill), then the JSON
      result line.
 
@@ -390,6 +424,7 @@ device spin before the start event, so the host's enqueue (logged as
     python3 chip_smoke.py --ssm-only    # phases 1 and 24: Mamba2
     python3 chip_smoke.py --hybrid-only # phases 1 and 25: jamba
     python3 chip_smoke.py --whisper-only  # phases 1 and 26: Whisper
+    python3 chip_smoke.py --precision-only  # phases 1 and 27: the switches
 
 It exits non-zero, printing no result, without a CUDA device or outside
 a checkout of the repository.
@@ -4925,9 +4960,10 @@ def whisper_frames(torch, cfg, B, seed, device):
                        device)
 
 
-def whisper_true_fan_in(params, cfg):
-    """Scale every stacked matmul weight (q, k, v, o, w1, w2), in place,
-    from the reference init's std to 1/sqrt(its true fan-in).  The
+def true_fan_in(params, cfg, leaves=("wq", "wk", "wv", "wo", "w1", "w2")):
+    """Scale every stacked matmul weight named in ``leaves`` (whisper's q,
+    k, v, o, w1, w2 by default), in place, from the reference init's std
+    to 1/sqrt(its true fan-in).  The
     reference reads a stacked leaf's fan-in from its layer axis (32, or 2
     at a 2-layer cut), so q, k and w1 are drawn 6.3x (25x) too wide and
     the random 32 + 32-layer stack is chaotic: decode and a teacher-forced
@@ -4936,7 +4972,7 @@ def whisper_true_fan_in(params, cfg):
     from repro_torch.models import model_defs
     from repro_torch.models.param import _fan_in, flatten_defs
     for name, d in flatten_defs(model_defs(cfg)).items():
-        if name.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "wo", "w1", "w2"):
+        if name.rsplit(".", 1)[-1] in leaves:
             one = d._replace(shape=d.shape[1:], axes=d.axes[1:])
             params[name].mul_((_fan_in(d) / _fan_in(one)) ** 0.5)
 
@@ -5016,14 +5052,14 @@ def phase_whisper_serve(torch, serve_mod, serving, cfg, rt, card):
 
 def phase_whisper_teacher(torch, serve_mod, serving, cfg, rt, card, steps=4):
     """26b: fp32 at full width and depth, B 2, the matmul weights at their
-    true fan-in (``whisper_true_fan_in``): a prompt of 24 tokens and
+    true fan-in (``true_fan_in``): a prompt of 24 tokens and
     ``steps`` decode steps on the cross cache, each step's logits against
     a prefill (with the frames) of the prefix it completes, within
     ``WHISPER_TF_REL`` of its max |logit|; beside it, how far a one-ulp
     scale of one weight leaf moves the prefill (a reading)."""
     c = dataclasses.replace(cfg, compute_dtype="float32")
     params, _ = serve_mod.load_model(c, rt, seed=WHISPER_SEED)
-    whisper_true_fan_in(params, c)
+    true_fan_in(params, c)
     B, S = 2, 24
     frames = whisper_frames(torch, c, B, WHISPER_SEED, rt.device)
     toks = torch.from_numpy(np.random.RandomState(WHISPER_SEED + 1).randint(
@@ -5066,7 +5102,7 @@ def phase_whisper_cpu(torch, serve_mod, cfg, rt, card):
     c = dataclasses.replace(cfg, n_layers=2, n_encoder_layers=2,
                             compute_dtype="float32")
     params, _ = serve_mod.load_model(c, rt, seed=WHISPER_SEED)
-    whisper_true_fan_in(params, c)
+    true_fan_in(params, c)
     frames = whisper_frames(torch, c, 2, WHISPER_SEED, rt.device)
     toks = torch.from_numpy(np.random.RandomState(WHISPER_SEED + 2).randint(
         0, c.vocab_size, (2, 24)).astype(np.int32)).to(rt.device)
@@ -5207,6 +5243,466 @@ def phase_whisper(torch, kernels, serve_mod, train_mod, serving, card):
             f"{t_b - t_a:.1f} s, 26c {t_c - t_b:.1f} s, 26d {t_d - t_c:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the precision and remat switches
+# ---------------------------------------------------------------------------
+
+PRECISION_STEPS = 4                  # 27b: steps a run
+PRECISION_REL = 5e-2                 # 27b: step-0 loss and ||g||, on vs off
+PRECISION_DECODE = (2, 480, 4)       # 27d: prompts, prompt length, decode steps
+# 27a: (what, a's shape, b's shape): a (M, K) or (n, M, K) times b
+BF16_DOT_SHAPES = [
+    ("gemma-2b logits chunk", (2048, 2048), (2048, 256000)),
+    ("gemma-2b scores (B 4, S 512, G 8, hd 256)", (4, 4096, 256), (4, 256, 512)),
+    ("whisper encoder scores (B 4, T 1500, H 20, hd 64)", (80, 1500, 64),
+     (80, 64, 1500)),
+]
+
+
+def bf16_excess(torch, ref, got):
+    """max(|ref - got| - one bf16 step of the value, 0) over max|ref|."""
+    ref, got = ref.float(), got.float()
+    step = 2.0 ** -7 * torch.maximum(ref.abs(), got.abs())
+    return float((torch.clamp((ref - got).abs() - step, min=0).max()
+                  / ref.abs().max()))
+
+
+def phase_bf16_dot(torch, layers, card):
+    """27a: ``bf16_dot`` on the card (tensor cores, ``out_dtype``) against
+    its plain form (``bf16_dot_ref``: the rounded operands lifted to fp32,
+    an fp32 GEMM with TF32 off) on the same inputs, forward and both
+    cotangents through autograd; then the forward product and the
+    backward's two cotangent products timed (``time_kernel``) beside the
+    plain form's and the bf16 bound (2 M N K flops a product at 989
+    TFLOP/s, or the bytes: bf16 operands read once, the fp32 output
+    written once; the backward six bf16 products of the fp32 cotangent's
+    three terms)."""
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    for what, sa, sb in BF16_DOT_SHAPES:
+        a = torch.randn(sa, device="cuda", generator=gen)
+        if len(sb) == 2:          # the unembedding is the embedding's transpose
+            b = (torch.randn(sb[::-1], device="cuda", generator=gen) * 0.02).T
+        else:
+            b = torch.randn(sb, device="cuda", generator=gen)
+        g = torch.randn(sa[:-1] + sb[-1:], device="cuda", generator=gen)
+        outs = {}
+        for fn in (layers.bf16_dot, layers.bf16_dot_ref):
+            ta, tb = a.clone().requires_grad_(), b.clone().requires_grad_()
+            o = fn(ta, tb)
+            o.backward(g)
+            outs[fn.__name__] = (o.detach(), ta.grad, tb.grad)
+            del ta, tb, o
+        (o1, da1, db1), (o0, da0, db0) = outs["bf16_dot"], outs["bf16_dot_ref"]
+        errs = {"forward": float((o1 - o0).abs().max() / o0.abs().max()),
+                "da": bf16_excess(torch, da0, da1),
+                "db": bf16_excess(torch, db0, db1)}
+        del outs, o1, da1, db1, o0, da0, db0
+        a16, b16 = a.bfloat16(), b.bfloat16()
+        *lead, M, K = a16.shape
+        N = b16.shape[-1]
+        n = lead[0] if lead else 1
+        flops = 2.0 * n * M * N * K
+        nbytes = 2 * (a16.numel() + b16.numel()) + 4 * n * M * N
+        fwd_ms = time_calls(torch, lambda: layers._mm_f32(a16, b16), n=10)
+        plain_ms = time_calls(torch, lambda: a16.float() @ b16.float(), n=3)
+        bwd_ms = time_calls(torch, lambda: layers._bf16_dot_grads(a16, b16, g),
+                            n=5)
+        plain_bwd_ms = time_calls(torch, lambda: (
+            (g @ b16.float().mT).bfloat16(), (a16.float().mT @ g).bfloat16()),
+            n=3)
+        bound = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        bwd_bound = max(6 * flops / BF16_FLOPS, (4 * g.numel() + nbytes
+                                                 - 4 * n * M * N)
+                        / HBM_BYTES_PER_S) * 1e3
+        log(f"[{card}] 27a bf16_dot, {what}: a {tuple(sa)} @ b {tuple(sb)}; "
+            f"card vs plain form: forward {errs['forward']:.3g} of max "
+            f"(bound 1e-5); cotangents beyond one bf16 step of the value, of "
+            f"max: a {errs['da']:.3g}, b {errs['db']:.3g} (bound 1e-5); "
+            f"forward {fwd_ms:.4f} ms = {flops / fwd_ms / 1e9:.1f} TFLOP/s "
+            f"(bound {bound:.4f} ms, {100 * bound / fwd_ms:.1f} %; plain form "
+            f"{plain_ms:.4f} ms); backward (two cotangents, six bf16 "
+            f"products) {bwd_ms:.4f} ms (bound {bwd_bound:.4f} ms; plain form "
+            f"{plain_bwd_ms:.4f} ms)")
+        if max(errs.values()) > 1e-5:
+            raise AssertionError(f"27a {what}: card vs plain form {errs}")
+        del a, b, g, a16, b16
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+
+def gemm_split(prof):
+    """Device ms of the profiled GEMMs (the kernels that ``aten::mm``,
+    ``bmm``, ``addmm`` and ``baddbmm`` launched) by the dtype of the
+    product's first matrix, read from the profile's trace: a kernel's
+    ``External id`` (or its runtime call's) names the op that launched
+    it, whose ``Input type`` the trace records with ``record_shapes``."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    ops, launch = {}, {}
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("cat") == "cpu_op" and e.get("name") in GEMM_OPS:
+            types = args.get("Input type") or ["?", "?"]
+            ops[args.get("External id")] = types[1 if "add" in e["name"] else 0]
+        elif e.get("cat") == "cuda_runtime" and "correlation" in args:
+            launch[args["correlation"]] = args.get("External id")
+    out = {}
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("cat") == "kernel":
+            xid = args.get("External id")
+            if xid not in ops:
+                xid = launch.get(args.get("correlation"))
+            if xid in ops:
+                out[ops[xid]] = out.get(ops[xid], 0.0) + e.get("dur", 0) / 1e3
+    return out
+
+
+@contextlib.contextmanager
+def per_block_remat(on=True):
+    """``transformer._remat_group`` forced to 1 while ``on``: remat per
+    block only, no sqrt-remat groups."""
+    from repro_torch.models import transformer
+    group = transformer._remat_group
+    if on:
+        transformer._remat_group = lambda n: 1
+    try:
+        yield
+    finally:
+        transformer._remat_group = group
+
+
+@contextlib.contextmanager
+def runtime_patch(train_mod, **kw):
+    """The launcher's ``make_runtime`` with ``kw`` added (the launcher has
+    no flag for ``gather_dtype``, as the JAX launcher has none)."""
+    make = train_mod.make_runtime
+    train_mod.make_runtime = lambda *a, **k: make(*a, **{**k, **kw})
+    try:
+        yield
+    finally:
+        train_mod.make_runtime = make
+
+
+def precision_train_run(torch, kernels, train_mod, card, on, profile,
+                        per_block=False):
+    """27b: phase 9's SNGM engine run (batch 8 x 512 in 2 micro-batches,
+    remat, wd 1e-4, ``PRECISION_STEPS`` steps) through the launcher's
+    ``build``/``train``, with ``logits_bf16``, ``sdpa_bf16`` and
+    ``gather_dtype="bfloat16"`` all on or all off, the launch counts set
+    to 0 just before and read just after; ``profile``: one more step under
+    ``torch.profiler``, its GEMM device time by dtype; ``per_block``:
+    ``_remat_group`` forced to 1 (per-block remat, no groups)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    args = train_mod.parse_args(
+        ["--arch", ARCH, "--steps", str(PRECISION_STEPS), "--batch", "8",
+         "--seq", "512", "--n-micro", "2", "--weight-decay", "1e-4",
+         "--log-every", "1", "--device", "cuda", "--seed", "0",
+         "--optimizer", "sngm", "--fused", "multi_tensor"])
+    label = ("switches on" if on else "switches off") + (
+        ", per-block remat" if per_block else "")
+    cut = ((lambda c: dataclasses.replace(c, logits_bf16=True, sdpa_bf16=True))
+           if on else (lambda c: c))
+    t0 = time.perf_counter()
+    with config_cut(train_mod, cut), runtime_patch(
+            train_mod, gather_dtype="bfloat16" if on else "float32"):
+        run = train_mod.build(args)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with per_block_remat(per_block):
+        state, mem = train_mod.train(args, run)
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    recs = [m for _, m in mem.steps]
+    steady = [m["step_time_s"] for m in recs[1:]]
+    step_s = float(np.median(steady))
+    want = dict.fromkeys(launches, 0)
+    want.update(chunk_sumsq=args.steps, fused_update=args.steps)
+    losses = ", ".join(f"{m['loss']:.4f}" for m in recs)
+    log(f"[{card}] 27b gemma-2b SNGM on the engine, {label} (logits_bf16 "
+        f"{run.cfg.logits_bf16}, sdpa_bf16 {run.cfg.sdpa_bf16}, gather_dtype "
+        f"{'bfloat16' if on else 'float32'}), built in {t_build:.1f} s: "
+        f"losses {losses}; "
+        f"||g|| step 0 {recs[0]['grad_norm']:.6g}; step 0 "
+        f"{recs[0]['step_time_s']:.3f} s, then "
+        f"{', '.join(f'{s:.3f}' for s in steady)} s; median {step_s:.3f} s = "
+        f"{args.batch * args.seq / step_s:.0f} tokens/s; peak device memory "
+        f"{peak:,} B; launches chunk_sumsq {launches['chunk_sumsq']}, "
+        f"fused_update {launches['fused_update']} in {args.steps} steps")
+    if launches != want:
+        raise AssertionError(f"27b {label}: launches {launches}, want {want}")
+    if len(recs) != args.steps or not all(
+            np.isfinite(m[k]) for m in recs for k in ("loss", "grad_norm", "lr")):
+        raise AssertionError(f"27b {label}: missing or non-finite stats")
+    if profile:
+        batch = run.data.batch_at(0)
+        torch.cuda.synchronize()
+        with per_block_remat(per_block), tprofile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            run.step(state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        split = gemm_split(prof)
+        log(f"[{card}] 27b {label}, profiled step ({wall:.0f} ms wall): GEMM "
+            f"device ms by input dtype " + (", ".join(
+                f"{k} {v:.1f}" for k, v in sorted(split.items()))
+                if split else "not measured (no GEMM kernel in the trace)"))
+        log_profile(prof, wall, f"[{card}] 27b {label} profiled step", top=6)
+        del prof
+    out = {"loss0": recs[0]["loss"], "gnorm0": recs[0]["grad_norm"],
+           "step_s": step_s, "peak": peak}
+    del run, state, mem
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_precision_train(torch, kernels, train_mod, card, full):
+    """27b: the switches off and on, one run each; ``full``: in turns
+    per-block off, off, on, on, off, per-block off, where per-block runs
+    remat without groups (``_remat_group`` forced to 1) beside the grouped
+    one, the first run of each kind profiled.  Each "on" run's step-0
+    loss and ||g|| within ``PRECISION_REL`` relative of the first "off"
+    run's."""
+    order = ([("per-block off", False, True), ("off", False, False),
+              ("on", True, False), ("on", True, False), ("off", False, False),
+              ("per-block off", False, True)] if full
+             else [("off", False, False), ("on", True, False)])
+    runs, profiled = [], set()
+    for kind, on, per_block in order:
+        runs.append(precision_train_run(torch, kernels, train_mod, card, on,
+                                        full and kind not in profiled,
+                                        per_block))
+        profiled.add(kind)
+    off = runs[[k for k, _, _ in order].index("off")]
+    for (kind, on, _), r in zip(order, runs):
+        for k in ("loss0", "gnorm0"):
+            rel = abs(r[k] - off[k]) / abs(off[k])
+            if on and rel > PRECISION_REL:
+                raise AssertionError(f"27b: switches on, {k} {r[k]:.6g} vs off "
+                                     f"{off[k]:.6g} ({rel:.3g} relative)")
+    for kind in dict.fromkeys(k for k, _, _ in order):
+        sel = [r for (k, _, _), r in zip(order, runs) if k == kind]
+        steps = ", ".join(f"{r['step_s']:.3f}" for r in sel)
+        peaks = ", ".join(f"{r['peak']:,}" for r in sel)
+        log(f"[{card}] 27b switches {kind}: step s {steps}; peak B {peaks}; "
+            f"step-0 loss {sel[0]['loss0']:.6f}, ||g|| {sel[0]['gnorm0']:.6g}")
+
+
+def phase_remat_groups(torch, layers, cfg, card, params, full):
+    """27c: full-width gemma-2b (18 periods, fp32 params, bf16 compute),
+    one micro-batch (4 x 512) of ``loss_fn`` and backward with remat, in
+    turns per-block (``_remat_group`` forced to 1: remat without groups),
+    grouped (4 groups of 4, 2 periods ungrouped), grouped,
+    per-block: grouped gradients bitwise the first per-block run's, or,
+    if the two per-block runs differ on the card, within twice their
+    difference (phase 18's rule); each run's time and its peak above
+    the memory held before it.  ``full``: then ``switch_norms``."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Runtime, transformer
+    from repro_torch.training.step import loss_fn
+    rt = Runtime(torch.device("cuda"), remat=True)
+    batch = SyntheticLM(cfg.vocab_size, 512, 4, seed=0, branching=4,
+                        device=rt.device).batch_at(0)
+    ref, diffs, rows = None, {}, []
+    for grouped in (False, True, True, False):
+        with per_block_remat(not grouped):
+            for v in params.values():
+                v.grad = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, _ = loss_fn(params, batch, cfg, rt)
+            loss.backward()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+        label = "grouped" if grouped else "per-block"
+        rows.append(f"{label} {secs:.3f} s, peak +{peak:,} B")
+        grads = {k: v.grad for k, v in params.items()}
+        if ref is None:
+            ref = {k: g.clone() for k, g in grads.items()}
+            continue
+        d = max(float((grads[k] - ref[k]).abs().max()) for k in ref)
+        diffs.setdefault(label, []).append(d)
+    off = {k: float(g.norm()) for k, g in ref.items()}
+    del ref, grads
+    live = max(diffs["per-block"])
+    worst = max(diffs["grouped"])
+    log(f"[{card}] 27c remat at {cfg.n_layers} periods (groups of "
+        f"{transformer._remat_group(cfg.n_layers)}), one micro-batch: "
+        + "; ".join(rows) + f"; max |grad - first per-block run's|: grouped "
+        f"{', '.join(f'{d:.3g}' for d in diffs['grouped'])}, per-block "
+        f"{live:.3g}")
+    if worst > 2 * live:
+        raise AssertionError(f"27c: grouped gradients {worst:.3g} from "
+                             f"per-block, per-block runs {live:.3g} apart")
+    if full:
+        switch_norms(torch, layers, cfg, card, params, batch, off)
+    for v in params.values():
+        v.grad = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def switch_norms(torch, layers, cfg, card, params, batch, off):
+    """27c's reading: the gradient norm of one micro-batch (remat on)
+    with each switch, with ``sdpa_bf16`` on its plain form
+    (``bf16_dot_ref``), and with the switches off and one weight leaf
+    scaled by one fp32 ulp, beside ``off``, the per-leaf norms with the
+    switches off."""
+    from repro_torch.models import Runtime
+    from repro_torch.training.step import loss_fn
+    leaf = "blocks.L0.attn.wq"
+    dot = layers.bf16_dot
+    norms = {"off": off}
+    for name, kw, gather in (("logits_bf16", {"logits_bf16": True}, "float32"),
+                             ("sdpa_bf16", {"sdpa_bf16": True}, "float32"),
+                             ("sdpa_bf16 plain form", {"sdpa_bf16": True},
+                              "float32"),
+                             ("gather_dtype", {}, "bfloat16"),
+                             ("all", {"logits_bf16": True, "sdpa_bf16": True},
+                              "bfloat16"),
+                             (f"off, one ulp on {leaf}", {}, "float32")):
+        for v in params.values():
+            v.grad = None
+        nudge = name.startswith("off")
+        if nudge:
+            with torch.no_grad():
+                keep = params[leaf].clone()
+                params[leaf].mul_(1 + 2**-23)
+        layers.bf16_dot = layers.bf16_dot_ref if "plain" in name else dot
+        try:
+            loss, _ = loss_fn(params, batch, dataclasses.replace(cfg, **kw),
+                              Runtime(torch.device("cuda"), remat=True,
+                                      gather_dtype=gather))
+            loss.backward()
+        finally:
+            layers.bf16_dot = dot
+            if nudge:
+                with torch.no_grad():
+                    params[leaf].copy_(keep)
+        norms[name] = {k: float(v.grad.norm()) for k, v in params.items()}
+    total = {n: sum(x * x for x in g.values()) ** 0.5 for n, g in norms.items()}
+    moved = max(off, key=lambda k: abs(norms["all"][k] - off[k]))
+    log(f"[{card}] 27c switches at one micro-batch (a reading): ||g|| "
+        + ", ".join(f"{n} {t:.6g}" for n, t in total.items())
+        + f"; the leaf whose norm moves most with all three: {moved} "
+        f"{off[moved]:.6g} -> {norms['all'][moved]:.6g}")
+
+
+GEMMA_MATMULS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+
+
+def phase_precision_decode(torch, layers, serving, cfg, card, params):
+    """27d: full-width gemma-2b at fp32 compute with ``sdpa_bf16``: a
+    prefill of ``PRECISION_DECODE`` prompts and teacher-forced dense
+    decode steps after ``pad_cache``, on the card's path (``bf16_dot``),
+    on its plain form (``bf16_dot_ref`` in its place) and on the card's
+    path with one weight leaf scaled by one fp32 ulp.  At the reference
+    init (stacked weights drawn at fan-in 18) the random stack is
+    chaotic under ``sdpa_bf16``: an ulp of difference in a layer's
+    output flips a bf16 rounding of a score operand in the next, so the
+    two forms part as far as the nudge moves the logits (a reading).
+    With the matmul weights scaled to their true fan-in (``true_fan_in``,
+    in place) every logits of the card's path is held within
+    ``LOGIT_REL["float32"]`` of the plain form's."""
+    from repro_torch.models import Runtime, forward
+    B, S0, steps = PRECISION_DECODE
+    cfg = dataclasses.replace(cfg, compute_dtype="float32", sdpa_bf16=True)
+    rt = Runtime(torch.device("cuda"))
+    toks = torch.from_numpy(np.random.RandomState(27).randint(
+        0, cfg.vocab_size, (B, S0 + steps)).astype(np.int32)).cuda()
+    dot = layers.bf16_dot
+    leaf = "blocks.L0.attn.wq"
+
+    def run(p, plain=False):
+        layers.bf16_dot = layers.bf16_dot_ref if plain else dot
+        try:
+            with torch.no_grad():
+                out, cache = forward(p, cfg, rt, toks[:, :S0], mode="prefill")
+                outs = [out]
+                cache = serving.pad_cache(cache, steps)
+                for i in range(steps):
+                    pos = torch.full((B,), S0 + i, dtype=torch.int32,
+                                     device=rt.device)
+                    out, cache = forward(p, cfg, rt, toks[:, S0 + i:S0 + i + 1],
+                                         mode="decode", cache=cache, pos=pos)
+                    outs.append(out)
+        finally:
+            layers.bf16_dot = dot
+        return outs
+
+    def rel(xs, ys):
+        return [float((a - b).abs().max() / b.abs().max()) for a, b in zip(xs, ys)]
+
+    worst = None
+    for init in ("reference", "true fan-in"):
+        if init != "reference":
+            with torch.no_grad():
+                true_fan_in(params, cfg, GEMMA_MATMULS)
+        card_, plain = run(params), run(params, plain=True)
+        nudged = run(dict(params, **{leaf: params[leaf] * (1 + 2**-23)}))
+        got, moved = rel(card_, plain), rel(nudged, card_)
+        fine = all(bool(torch.isfinite(x).all()) for x in card_)
+        log(f"[{card}] 27d gemma-2b fp32 compute, sdpa_bf16, {init} init, {B} "
+            f"prompts of {S0}, prefill + {steps} dense decode steps: card vs "
+            f"plain form {', '.join(f'{r:.3g}' for r in got)} of max; one "
+            f"ulp on {leaf} moves the card's {', '.join(f'{r:.3g}' for r in moved)}"
+            f"; finite {fine}" + (f" (bound {LOGIT_REL['float32']})"
+                                  if init != "reference" else " (a reading)"))
+        if not fine:
+            raise AssertionError(f"27d {init}: non-finite logits")
+        worst = max(got)
+    if worst > LOGIT_REL["float32"]:
+        raise AssertionError(f"27d true fan-in: card vs plain form {worst:.3g}")
+
+
+def phase_precision(torch, kernels, train_mod, serving, layers, card, full):
+    """Phase 27, 27a-27d, each sub-phase's seconds logged, every line led
+    by the card's name and power limit.  ``full`` (``--precision-only``)
+    runs 27b in six turns, per-block remat among them, else one run of
+    the switches off and one on."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import materialize, model_defs
+    cfg = get_config(ARCH)
+    with contextlib.redirect_stdout(CardLines(sys.stdout, card)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_bf16_dot(torch, layers, card)
+        t_a = time.perf_counter()
+        params = {k: v.requires_grad_() for k, v in materialize(
+            model_defs(cfg), prng.PRNGKey(0), torch.device("cuda")).items()}
+        phase_remat_groups(torch, layers, cfg, card, params, full)
+        t_c = time.perf_counter()
+        phase_precision_decode(torch, layers, serving, cfg, card, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_d = time.perf_counter()
+        phase_precision_train(torch, kernels, train_mod, card, full)
+        t_b = time.perf_counter()
+        log(f"[{card}] phase 27: {t_b - t0:.1f} s (27a {t_a - t0:.1f} s, 27c "
+            f"{t_c - t_a:.1f} s, 27d {t_d - t_c:.1f} s, 27b {t_b - t_d:.1f} s)")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="On-card smoke run of the port.")
@@ -5256,6 +5752,13 @@ def main(argv=None) -> int:
                          "dense cache, teacher forcing, the card against the "
                          "CPU, SNGM training on the engine); prints no "
                          "kernel rows")
+    ap.add_argument("--precision-only", action="store_true",
+                    help="phases 1 and 27 only (the precision and remat "
+                         "switches: bf16_dot against its plain form, gemma-2b "
+                         "training with the switches off and on and per-block "
+                         "remat, six runs in turn, grouped against per-block "
+                         "remat, decode with sdpa_bf16); prints no kernel "
+                         "rows")
     ap.add_argument("--ema-only", action="store_true",
                     help="phases 1 and 21 only (EMA shadow parameters on the "
                          "engine at full width, against the interpreter and "
@@ -5295,7 +5798,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     libs = {"paged_attention": [ops.SOURCE]}
     if (args.convnet_only or args.ema_only or args.moe_only or args.ssm_only
-            or args.whisper_only):
+            or args.whisper_only or args.precision_only):
         libs = {mt_ops.LIB_NAME: [mt_ops.SOURCE]}
     elif args.chains_only or args.ckpt_only or args.data_only or args.hybrid_only:
         libs[mt_ops.LIB_NAME] = [mt_ops.SOURCE]
@@ -5337,6 +5840,8 @@ def main(argv=None) -> int:
                      ref, card)
     elif args.whisper_only:
         phase_whisper(torch, kernels, serve_mod, train_mod, serving, card)
+    elif args.precision_only:
+        phase_precision(torch, kernels, train_mod, serving, layers, card, True)
     elif not args.ops_only:
         err = phase_kernel(torch, ops, ref)
         rt = make_runtime("cuda")
@@ -5393,12 +5898,13 @@ def main(argv=None) -> int:
         phase_hybrid(torch, kernels, serve_mod, train_mod, serving, layers, ops,
                      ref, card)
         phase_whisper(torch, kernels, serve_mod, train_mod, serving, card)
+        phase_precision(torch, kernels, train_mod, serving, layers, card, False)
         t_train = time.perf_counter()
 
     if not (args.paged_only or args.chains_only or args.ckpt_only
             or args.data_only or args.convnet_only or args.ema_only
             or args.dense_only or args.moe_only or args.ssm_only
-            or args.hybrid_only or args.whisper_only):
+            or args.hybrid_only or args.whisper_only or args.precision_only):
         phase_ops_grid(torch, rms_ops, rms_ref, fa_ops, fa_ref)
         cases = ops_cases(torch)
         outs, ops_launches = phase_ops_path(torch, kernels, rms_ops, fa_ops, cases)

@@ -10,7 +10,9 @@ projections; the cross-attention itself is assembled in
 one block arrive as a flat dict keyed by the leaf name under the block
 ("wq", "scale", ...).  Numerics follow the JAX package: fp32 norms,
 RoPE and softmax, matmuls in the compute dtype; each function says
-where the port's PyTorch idiom differs.
+where the port's PyTorch idiom differs.  ``cfg.sdpa_bf16`` runs the
+attention score products bf16-in, f32-out (``bf16_dot``), as the JAX
+package's ``_sdpa(bf16_mm=True)`` does.
 """
 from __future__ import annotations
 
@@ -23,7 +25,105 @@ from repro_torch.models.param import ParamDef
 
 NEG_INF = -2.0e38  # large-negative for masking (fp32-safe)
 
-NOT_PORTED = "is not ported yet (ROADMAP.md Queue A)"
+
+# ---------------------------------------------------------------------------
+# bf16-in, f32-out products
+# ---------------------------------------------------------------------------
+
+def _split3(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` (..., M, N) as three bf16 terms hi + mid + lo stacked on
+    the rows, (..., 3M, N).  Each term holds 8 of fp32's 24 significand
+    bits and each difference is exact, so the three sum to ``x`` exactly
+    (short of the subnormal range), and their products with a bf16
+    operand are exact in fp32."""
+    *lead, M, N = x.shape
+    out = torch.empty((*lead, 3, M, N), dtype=torch.bfloat16, device=x.device)
+    hi, mid, lo = out.unbind(-3)
+    hi.copy_(x)
+    r = x - hi
+    mid.copy_(r)
+    lo.copy_(r.sub_(mid))
+    return out.view(*lead, 3 * M, N)
+
+
+# products one GEMM sums into an output: the tensor cores' fp32
+# accumulation truncates, and over the vocabulary (256000 products, the
+# logits' backward) that drifted 9.7e-5 of the max beyond a bf16 step
+# from an fp32 GEMM on an H100; longer contractions run in chunks of
+# K_CHUNK whose fp32 results are added in order
+K_CHUNK = 4096
+
+
+def _mm_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """bf16 ``x @ y`` (2-D, or batched 3-D) accumulated and returned in
+    fp32.  On a CUDA tensor the tensor cores (``torch.mm``/``torch.bmm``
+    with ``out_dtype``); on a CPU tensor the operands lifted to fp32,
+    where the products of bf16 values are exact and only the order of
+    the sums differs.  A contraction longer than ``K_CHUNK`` is summed a
+    chunk at a time."""
+    if x.is_cuda:
+        mm = torch.mm if x.dim() == 2 else torch.bmm
+        prod = lambda u, v: mm(u, v, out_dtype=torch.float32)   # noqa: E731
+    else:
+        prod = lambda u, v: u.float() @ v.float()               # noqa: E731
+    n = x.shape[-1]
+    out = prod(x[..., :K_CHUNK], y[..., :K_CHUNK, :])
+    for k0 in range(K_CHUNK, n, K_CHUNK):
+        out.add_(prod(x[..., k0:k0 + K_CHUNK], y[..., k0:k0 + K_CHUNK, :]))
+    return out
+
+
+class _Bf16Dot(torch.autograd.Function):
+    """bf16 ``a @ b`` accumulated and returned in fp32, and the JAX
+    package's transpose of ``dot_general(preferred_element_type=f32)``:
+    each operand's cotangent is the fp32 output cotangent times the
+    other (bf16) operand, summed in fp32, then rounded to the operand's
+    dtype.  The cotangent itself is not rounded: XLA multiplies the fp32
+    cotangent by the bf16 operand in fp32.  Here the cotangent enters
+    bf16 products as its three exact bf16 terms (``_split3``), stacked
+    on the rows: one product, whose row thirds are added, for ``a``'s
+    cotangent, and one product that sums over all three for ``b``'s."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _bf16_dot_grads(*ctx.saved_tensors, g, *ctx.needs_input_grad)
+
+
+def _bf16_dot_grads(a, b, g, need_a: bool = True, need_b: bool = True):
+    """``_Bf16Dot``'s cotangents of bf16 ``a`` and ``b`` for the fp32
+    output cotangent ``g`` (None where not needed)."""
+    g3 = _split3(g)                                           # (..., 3M, N)
+    da = db = None
+    if need_a:
+        da = _mm_f32(g3, b.mT).unflatten(-2, (3, g.shape[-2])).sum(-3)
+        da = da.to(a.dtype)
+    if need_b:
+        db = _mm_f32(torch.cat([a.mT] * 3, -1), g3).to(b.dtype)
+    return da, db
+
+
+def bf16_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of the operands rounded to bf16, accumulated and
+    returned in fp32: the JAX package's ``einsum(a.astype(bf16),
+    b.astype(bf16), preferred_element_type=f32)``.  a (M, K) and b
+    (K, N), or a batch of each, (n, M, K) and (n, K, N).  The rounding
+    of an fp32 operand is an autograd cast, so its cotangent comes back
+    in fp32, as ``astype``'s does.  The card and the CPU run the same
+    products (``_mm_f32``), each on its own device's GEMM."""
+    return _Bf16Dot.apply(a.bfloat16(), b.bfloat16())
+
+
+def bf16_dot_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``bf16_dot``'s plain form: the operands rounded to bf16 and lifted
+    back to fp32, multiplied in fp32.  Autograd through it is the same
+    rule: the fp32 cotangent times the other operand in fp32, rounded to
+    bf16 by the lift's backward."""
+    return a.bfloat16().float() @ b.bfloat16().float()
 
 
 # ---------------------------------------------------------------------------
@@ -218,19 +318,25 @@ def _chunk_mask(q0: int, Qc: int, T: int, causal: bool, window: int, device):
     return torch.where(ok, 0.0, NEG_INF).float()
 
 
-def _sdpa(q, k, v, mask, cap, scale):
+def _sdpa(q, k, v, mask, cap, scale, bf16_mm: bool = False):
     """q: (B,S,H,hd)  k,v: (B,T,K,hd), K | H.  mask: broadcast (B,H,S,T).
 
     Scores and softmax in fp32; the probabilities are cast to v's dtype
-    for the PV product, as in the JAX package.  GQA groups the G = H/K
-    query heads of a kv head in a broadcast matmul instead of repeating
-    K/V (same head mapping: head h reads kv head h // G)."""
+    for the PV product, as in the JAX package.  ``bf16_mm``: the score
+    product takes the scaled q and k rounded to bf16 (``bf16_dot``), as
+    the JAX package's does.  GQA groups the G = H/K query heads of a kv
+    head in one batched matmul instead of repeating K/V (same head
+    mapping: head h reads kv head h // G)."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     qf = (q.float() * scale).reshape(B, S, K, G, hd).permute(0, 2, 3, 1, 4)
-    kf = k.float().permute(0, 2, 3, 1)[:, :, None]           # (B,K,1,hd,T)
-    s = (qf @ kf).reshape(B, H, S, T)
+    if bf16_mm:
+        s = bf16_dot(qf.reshape(B * K, G * S, hd),
+                     k.permute(0, 2, 3, 1).reshape(B * K, hd, T))
+    else:
+        s = qf @ k.float().permute(0, 2, 3, 1)[:, :, None]   # (B,K,1,hd,T)
+    s = s.reshape(B, H, S, T)
     s = softcap(s, cap) + mask
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = p.reshape(B, K, G, S, T) @ v.permute(0, 2, 1, 3)[:, :, None]
@@ -240,7 +346,8 @@ def _sdpa(q, k, v, mask, cap, scale):
 Q_CHUNK = 1024
 
 
-def _sdpa_seq(q, k, v, causal: bool, window: int, cap, scale):
+def _sdpa_seq(q, k, v, causal: bool, window: int, cap, scale,
+              bf16_mm: bool = False):
     """Full-sequence attention, chunked over the query dim so scores
     exist only per (Q_CHUNK, T) block.  Plain torch matmuls: the JAX
     package has no Pallas kernel here either."""
@@ -253,9 +360,9 @@ def _sdpa_seq(q, k, v, causal: bool, window: int, cap, scale):
                 else torch.zeros((), dtype=torch.float32, device=q.device))
 
     if S <= Q_CHUNK or S % Q_CHUNK != 0:
-        return _sdpa(q, k, v, mask(0, S), cap, scale)
+        return _sdpa(q, k, v, mask(0, S), cap, scale, bf16_mm)
     return torch.cat([_sdpa(q[:, c:c + Q_CHUNK], k, v, mask(c, Q_CHUNK),
-                            cap, scale)
+                            cap, scale, bf16_mm)
                       for c in range(0, S, Q_CHUNK)], dim=1)
 
 
@@ -308,9 +415,10 @@ def gqa_attention(p, x, cfg: ModelConfig, *, local: bool, pos, cache=None,
       * paged decode: cache={"kp","vp","bt"}, x (B,1,d), pos (B,).
     In both decode modes the cache's tensors are written in place
     (``index_put_``) and the same dict is returned, where the JAX
-    package returns new arrays.  Returns (out, cache)."""
-    if cfg.sdpa_bf16:
-        raise NotImplementedError(f"sdpa_bf16 {NOT_PORTED}")
+    package returns new arrays.  ``cfg.sdpa_bf16`` reaches the full
+    sequence, the dense decode and the paged plain gather, as in the JAX
+    package; the paged kernel is called as without it.  Returns (out,
+    cache)."""
     cdt = getattr(torch, cfg.compute_dtype)
     hd = cfg.resolved_head_dim
     xc = x.to(cdt)
@@ -328,7 +436,8 @@ def gqa_attention(p, x, cfg: ModelConfig, *, local: bool, pos, cache=None,
     scale = hd ** -0.5
 
     if cache is None:                                   # full sequence
-        o = _sdpa_seq(q, k, v, causal, window, cfg.attn_softcap, scale)
+        o = _sdpa_seq(q, k, v, causal, window, cfg.attn_softcap, scale,
+                      cfg.sdpa_bf16)
         new_cache = (ring_cache({"k": k, "v": v}, x.shape[1], window)
                      if causal and build_cache else None)
         return _proj_out(o, p["wo"].to(cdt)), new_cache
@@ -344,7 +453,8 @@ def gqa_attention(p, x, cfg: ModelConfig, *, local: bool, pos, cache=None,
         if window > 0:
             valid &= sp > pos[:, None] - window
         mask = torch.where(valid, 0.0, NEG_INF).float()[:, None, None, :]
-        o = _sdpa(q, ck.to(cdt), cv.to(cdt), mask, cfg.attn_softcap, scale)
+        o = _sdpa(q, ck.to(cdt), cv.to(cdt), mask, cfg.attn_softcap, scale,
+                  cfg.sdpa_bf16)
         return _proj_out(o, p["wo"].to(cdt)), cache
     # ---- paged decode (x is (B,1,d)) ----
     kp, vp, bt = cache["kp"], cache["vp"], cache["bt"]
@@ -358,7 +468,8 @@ def gqa_attention(p, x, cfg: ModelConfig, *, local: bool, pos, cache=None,
         vd = _paged_gather(vp, bt)
         valid = _paged_valid(pos, kd.shape[1], window)
         mask = torch.where(valid, 0.0, NEG_INF).float()[:, None, None, :]
-        o = _sdpa(q, kd.to(cdt), vd.to(cdt), mask, cfg.attn_softcap, scale)
+        o = _sdpa(q, kd.to(cdt), vd.to(cdt), mask, cfg.attn_softcap, scale,
+                  cfg.sdpa_bf16)
     return _proj_out(o.to(cdt), p["wo"].to(cdt)), cache
 
 
@@ -407,9 +518,9 @@ def mla_attention(p, x, cfg: ModelConfig, *, local: bool, pos, cache=None,
         (n_blocks, bs, r) / (n_blocks, bs, rr), written and gathered
         through the block table in plain PyTorch, as the JAX package
         does (no paged-attention kernel serves MLA).
+    ``cfg.sdpa_bf16`` reaches the full sequence only: the absorbed decode
+    keeps its fp32 score products, as in the JAX package.
     Returns (out, cache)."""
-    if cfg.sdpa_bf16:
-        raise NotImplementedError(f"sdpa_bf16 {NOT_PORTED}")
     cdt = getattr(torch, cfg.compute_dtype)
     m = cfg.mla
     H = cfg.n_heads
@@ -435,7 +546,8 @@ def mla_attention(p, x, cfg: ModelConfig, *, local: bool, pos, cache=None,
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
             B, S, H, m.qk_rope_dim)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)            # (B,S,H,qk)
-        o = _sdpa_seq(q, k, v, True, window, cfg.attn_softcap, scale)
+        o = _sdpa_seq(q, k, v, True, window, cfg.attn_softcap, scale,
+                      cfg.sdpa_bf16)
         new_cache = (ring_cache({"ckv": ckv, "krope": k_rope}, S, window)
                      if build_cache else None)
         return _proj_out(o, p["wo"].to(cdt)), new_cache

@@ -2,7 +2,8 @@
 
 The JAX package's ``Runtime`` carries a mesh; the port runs on one
 device and carries that device instead, plus the choice of paged
-decode attention and of per-block remat in training.  Entry points run
+decode attention, of remat in training and of the dtype the loss casts
+the weights to.  Entry points run
 on CUDA unless the caller asks for the CPU: ``resolve_device`` raises
 when CUDA is asked for (the default) and no card is present, and never
 falls back to the CPU.
@@ -26,8 +27,24 @@ class Runtime:
     paged_kernel: bool = True
     # train mode: checkpoint each block (torch.utils.checkpoint), so the
     # backward pass keeps one block's internals at a time, as the JAX
-    # package's Runtime.remat does with jax.checkpoint
+    # package's Runtime.remat does with jax.checkpoint; a stack of 12 or
+    # more periods also runs them in checkpointed groups (sqrt-remat)
     remat: bool = False
+    # the loss casts every stored fp32 leaf of two or more dims (stacked
+    # leaves by their stored shape: the stacked norm scales too) to this
+    # dtype once a micro-batch, before the forward, as the JAX package's
+    # Runtime.gather_dtype does
+    gather_dtype: str = "float32"
+    # what remat saves: "full" saves a block's input only; the JAX
+    # package's "save_tp" names tensor-parallel outputs, which the
+    # one-device port does not have
+    remat_policy: str = "full"
+
+    def __post_init__(self):
+        if self.remat_policy == "save_tp":
+            raise NotImplementedError(
+                "remat_policy='save_tp' (tensor-parallel outputs) is not "
+                "ported yet (ROADMAP.md Queue A item 5)")
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
@@ -48,8 +65,9 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
 
 
 def make_runtime(device: Union[str, torch.device, None] = None, *,
-                 remat: bool = False) -> Runtime:
-    return Runtime(device=resolve_device(device), remat=remat)
+                 remat: bool = False, gather_dtype: str = "float32") -> Runtime:
+    return Runtime(device=resolve_device(device), remat=remat,
+                   gather_dtype=gather_dtype)
 
 
 CPU_RUNTIME = Runtime(device=torch.device("cpu"))

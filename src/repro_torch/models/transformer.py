@@ -14,7 +14,9 @@ pass stacks each leaf's gradient in one piece.  Leading prefix layers
 (DeepSeek-V2's dense first layer, ``layer_pattern``) are unrolled
 before the periods and carry no stacked dim.  Per-block remat
 (``Runtime.remat``) is ``torch.utils.checkpoint``, the JAX package's
-``jax.checkpoint``; its sqrt-remat grouping of periods is not ported.
+``jax.checkpoint``; a stack of 12 or more periods also runs them in
+checkpointed groups of about sqrt(n) periods (``_remat_group``), as
+the JAX package does.
 
 Whisper (``cfg.is_encoder_decoder``): LayerNorms with a bias, an
 ungated GELU MLP with biases, and an ``encoder`` subtree, a stack of
@@ -226,7 +228,7 @@ def _cross_attend(p, x, cfg: ModelConfig, ck, cv):
     cdt = getattr(torch, cfg.compute_dtype)
     q = layers._proj_in(x.to(cdt), p["wq"].to(cdt))
     o = layers._sdpa_seq(q, ck.to(cdt), cv.to(cdt), False, 0, 0.0,
-                         cfg.resolved_head_dim ** -0.5)
+                         cfg.resolved_head_dim ** -0.5, cfg.sdpa_bf16)
     return layers._proj_out(o, p["wo"].to(cdt))
 
 
@@ -294,6 +296,15 @@ def block_apply(p, spec: LayerSpec, h, cfg: ModelConfig, rt: Runtime, *,
 # ---------------------------------------------------------------------------
 # full forward
 # ---------------------------------------------------------------------------
+
+def _remat_group(n_periods: int) -> int:
+    """Group size for sqrt-remat (the JAX package's): ~sqrt(n), only
+    for deep stacks."""
+    if n_periods < 12:
+        return 1
+    import math
+    return max(2, round(math.sqrt(n_periods)))
+
 
 def forward(params, cfg: ModelConfig, rt: Runtime, tokens, *,
             mode: str, cache=None, pos=None, last_pos=None,
@@ -364,11 +375,32 @@ def forward(params, cfg: ModelConfig, rt: Runtime, tokens, *,
                     if mode == "decode" else {})
     stacked = {k: v.unbind(0) for k, v in params.items()
                if k.startswith("blocks.")}
-    for i in range(n_periods):
-        for j, spec in enumerate(period):
-            pre = f"blocks.L{j}."
-            p = {k[len(pre):]: v[i] for k, v in stacked.items()
+
+    def period_params(i):
+        return [{k[len(pre):]: v[i] for k, v in stacked.items()
                  if k.startswith(pre)}
+                for pre in (f"blocks.L{j}." for j in range(len(period)))]
+
+    def run_periods(ps, hh, aux_acc):
+        for p_period in ps:
+            for spec, p in zip(period, p_period):
+                hh, _, aux = run(p, spec, hh, None)
+                aux_acc = aux_acc + aux
+        return hh, aux_acc
+
+    # sqrt-remat: groups of `group` periods, each group checkpointed
+    # around its blocks' own checkpoints, so backward keeps one h a group
+    # (and recomputes a group's forward once more); the remainder
+    # periods run ungrouped, as in the JAX package
+    group = _remat_group(n_periods) if remat else 1
+    n_grouped = n_periods - n_periods % group if group > 1 else 0
+    for g0 in range(0, n_grouped, group):
+        h, aux_total = checkpoint(
+            run_periods, [period_params(i) for i in range(g0, g0 + group)],
+            h, aux_total, use_reentrant=False)
+    for i in range(n_grouped, n_periods):
+        for j, (spec, p) in enumerate(zip(period, period_params(i))):
+            pre = f"blocks.L{j}."
             c_in: Optional[dict] = None
             if mode == "decode":    # views: in-place writes reach the stack
                 c_in = {n: t[i] for n, t in layer_caches[j].items()}

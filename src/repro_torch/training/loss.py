@@ -18,10 +18,10 @@ CHUNK = 512
 
 def _chunk_loss(h_c, unembed, t_c, m_c, cfg: ModelConfig):
     if cfg.logits_bf16:
-        # bf16 inputs, f32 accumulation and output (the JAX package's
-        # preferred_element_type=f32): products of bf16 values are exact
-        # in f32, so rounding the inputs and multiplying in f32 is it
-        logits = h_c.bfloat16().float() @ unembed.bfloat16().float()
+        # bf16 inputs, f32 accumulation and output, and JAX's backward
+        # (the JAX package's preferred_element_type=f32; ``bf16_dot``)
+        logits = layers.bf16_dot(h_c.flatten(0, -2), unembed).unflatten(
+            0, h_c.shape[:-1])
     else:
         logits = h_c.float() @ unembed.float()
     logits = layers.softcap(logits, cfg.final_softcap)

@@ -35,9 +35,22 @@ from repro_torch.models.transformer import forward, unembed_matrix
 from repro_torch.training.loss import lm_loss
 
 
+def gather_cast(params, rt: Runtime):
+    """``params`` with every fp32 leaf of two or more dims, as stored
+    (a stacked norm scale is one), cast to ``rt.gather_dtype``: the JAX
+    package's rule (its comment names matrices; its test is the ndim).
+    The cast is differentiable, so gradients reach the fp32 leaves."""
+    if rt.gather_dtype == "float32":
+        return params
+    gd = getattr(torch, rt.gather_dtype)
+    return {k: v.to(gd) if v.dim() >= 2 and v.dtype == torch.float32 else v
+            for k, v in params.items()}
+
+
 def loss_fn(params, batch: Dict[str, Any], cfg: ModelConfig, rt: Runtime):
     """``batch``: tokens, loss_mask and, for an encoder-decoder,
     encoder_embeds (B, encoder_len, d)."""
+    params = gather_cast(params, rt)
     h, aux = forward(params, cfg, rt, batch["tokens"], mode="train",
                      encoder_embeds=batch.get("encoder_embeds"))
     loss, ntok = lm_loss(h, unembed_matrix(params), batch["tokens"],
